@@ -1,0 +1,51 @@
+"""NumPy/SciPy oracle (counterpart of cusp_autotuned_tpu/backend/reference.py):
+a slow host-side implementation that the port's kernels and plain paths are
+checked against.  It reads the port's containers only; it never calls the
+JAX package."""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+
+from cusp_autotuned_tpu_torch.formats.base import host_array
+
+
+def to_scipy(A):
+    """A COO/CSR/DIA container as a scipy.sparse matrix."""
+    from cusp_autotuned_tpu_torch import formats as F
+
+    if isinstance(A, F.COO):
+        nnz = A.nnz
+        return sp.coo_matrix((host_array(A.val[:nnz]),
+                              (host_array(A.row[:nnz]), host_array(A.col[:nnz]))),
+                             shape=A.shape)
+    if isinstance(A, F.CSR):
+        nnz = A.nnz
+        return sp.csr_matrix((host_array(A.val[:nnz]), host_array(A.col[:nnz]),
+                              host_array(A.indptr)), shape=A.shape)
+    if isinstance(A, F.DIA):
+        data = host_array(A.data)
+        m, n = A.shape
+        # port layout data[d, i] = A[i, i+off]; scipy's is data[d, j] = A[j-off, j]
+        sdata = np.zeros((len(A.offsets), n), dtype=data.dtype)
+        i = np.arange(m)
+        for d, off in enumerate(A.offsets):
+            j = i + off
+            valid = (j >= 0) & (j < n)
+            sdata[d, j[valid]] = data[d, i[valid]]
+        return sp.dia_matrix((sdata, np.asarray(A.offsets)), shape=A.shape)
+    raise TypeError(f"cannot convert {type(A)} to scipy")
+
+
+def from_scipy(S, fmt: str = "csr", dtype=None, device="cpu"):
+    from cusp_autotuned_tpu_torch.formats.coo import coo_matrix
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+    S = S.tocoo()
+    return convert(coo_matrix(S.row, S.col, S.data, S.shape, dtype=dtype),
+                   fmt).to(device)
+
+
+def reference_spmv(A, x) -> np.ndarray:
+    """Oracle y = A @ x via scipy, in float64."""
+    return to_scipy(A).astype(np.float64) @ np.asarray(host_array(x), np.float64)

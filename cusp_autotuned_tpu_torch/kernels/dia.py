@@ -1,0 +1,105 @@
+"""DIA SpMV: the CUDA kernel's wrapper, its plain PyTorch version, and the
+plan builder.
+
+Replaces the JAX package's Pallas DIA kernels, `_dia_kernel`
+(cusp_autotuned_tpu/kernels/pallas_dia.py:393) and `_dia_streamed_kernel`
+(:240), with one CUDA kernel, `csrc/dia_spmv.cu`.  The kernel is bound by
+bytes, k·rows·s of diagonal data plus 2·m·4 for x and y; see the source for
+its design.  DIA × dense blocks (`_dia_spmm_kernel`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cusp_autotuned_tpu_torch.kernels import _build
+from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
+from cusp_autotuned_tpu_torch.utils.exceptions import (
+    InvalidInputException, NotImplementedException,
+)
+
+
+def _scale(vals, xs):
+    """vals (E,) times xs (E,) or (E, k)."""
+    return vals * xs if xs.dim() == 1 else vals[:, None] * xs
+
+
+def _pad_rows(x, left, right):
+    z = x.new_zeros
+    return torch.cat([z((left,) + x.shape[1:]), x, z((right,) + x.shape[1:])])
+
+
+def dia_spmv_plain(data, offsets, x, shape):
+    """y = A @ x by shifted slices of a zero-padded x, one per diagonal,
+    accumulated in x's dtype (the XLA path of the JAX package's
+    ops/multiply.py:spmv_dia).  x may be (n,) or (n, k)."""
+    m, n = shape
+    mp = data.shape[1]
+    left = -min(0, min(offsets))
+    x_pad = _pad_rows(x, left, max(n, mp + max(offsets)) - n)
+    acc = None
+    for d, off in enumerate(offsets):
+        seg = x_pad[left + off: left + off + mp]
+        term = _scale(data[d].to(x.dtype), seg)
+        acc = term if acc is None else acc + term
+    return acc[:m]
+
+
+def dia_spmv(data, offsets, x, shape):
+    """y = A @ x for a DIA matrix with diagonals `data` (k, pitch) and int32
+    `offsets` (k,).  On CPU tensors this is the plain version; on CUDA
+    tensors it launches the kernel, and raises on what the kernel does not
+    take."""
+    if x.dim() != 1:
+        raise NotImplementedException(
+            "the DIA kernel takes 1-D x; DIA x dense blocks are not ported yet")
+    if x.device.type == "cpu" and data.device.type == "cpu":
+        return dia_spmv_plain(data, tuple(offsets.tolist()), x, shape)
+    m, n = shape
+    k, pitch = data.shape
+    if not (data.device == offsets.device == x.device) or x.device.type != "cuda":
+        raise InvalidInputException(
+            f"DIA kernel needs data, offsets and x on one CUDA device "
+            f"(got {data.device}, {offsets.device}, {x.device})")
+    if data.dtype not in _build.STORAGE or x.dtype != _build.STORAGE[data.dtype][1]:
+        raise InvalidInputException(
+            f"DIA kernel takes f32/bf16 data with f32 x, or f64 with f64 "
+            f"(got {data.dtype} data, {x.dtype} x)")
+    if offsets.dtype != torch.int32 or offsets.shape != (k,):
+        raise InvalidInputException("offsets must be int32 of shape (k,)")
+    if x.shape != (n,) or pitch < m:
+        raise InvalidInputException(
+            f"shape mismatch: data {tuple(data.shape)}, x {tuple(x.shape)}, "
+            f"matrix {shape}")
+    if not (data.is_contiguous() and offsets.is_contiguous() and x.is_contiguous()):
+        raise InvalidInputException("DIA kernel needs contiguous tensors")
+    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    if m:
+        _build.launch("cusp_dia_spmv", data.dtype, x.device,
+                      data, offsets, k, pitch, x, y, m, n)
+        dia_spmv.launches += 1
+    return y
+
+
+dia_spmv.launches = 0
+
+
+def build_dia(A, config):
+    """Plan A (a DIA container) for the kernel: diagonal data in the storage
+    dtype that `value_dtype` names, offsets as a device tensor."""
+    store = plan_value_dtype(config, A.dtype)
+    arrays = {
+        "data": A.data.to(store).contiguous(),
+        "offsets": torch.tensor(A.offsets, dtype=torch.int32, device=A.device),
+    }
+    shape = A.shape
+
+    def apply(arrays, x):
+        return dia_spmv(arrays["data"], arrays["offsets"], x, shape)
+
+    def fn(x):
+        return apply(arrays, x)
+
+    fn.planned_arrays = arrays
+    fn.apply = apply
+    return fn

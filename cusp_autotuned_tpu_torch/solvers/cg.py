@@ -1,0 +1,57 @@
+"""Preconditioned conjugate gradients (counterpart of
+cusp_autotuned_tpu/solvers/cg.py; parity target cusp::krylov::cg,
+cusp/krylov/detail/cg.inl:41-107, with the same defaults: no monitor ->
+500 iterations at rtol 1e-5, no M -> identity).
+
+The JAX package runs the whole solve as one while_loop on the device.  Here
+the loop runs on the host but never waits for the device inside a block of
+CHECK_EVERY iterations: the residual norms, the stop test and the history
+stay on the device, and the host reads the stop flag once per block.  Once
+the flag drops, the remaining iterations of the block are masked: alpha is
+0, so x and r keep their values, p and rz are held, and the monitor
+records nothing.  x, the iteration count and the history are those of a
+loop that tests the flag every iteration.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cusp_autotuned_tpu_torch.ops import blas
+from cusp_autotuned_tpu_torch.ops.multiply import multiply
+from cusp_autotuned_tpu_torch.operators import as_operator
+from cusp_autotuned_tpu_torch.solvers.monitor import Monitor, default_monitor
+
+CHECK_EVERY = 32
+
+
+def cg(A, b, x0=None, monitor: Monitor | None = None, M=None):
+    """Solve A x = b.  Returns (x, monitor).  b (and x0) are tensors on the
+    device that A computes on."""
+    b = torch.as_tensor(b)
+    if monitor is None:
+        monitor = default_monitor(b)
+    M = as_operator(M)
+    x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0).clone()
+    state = monitor.to_state(b)
+
+    r = b - multiply(A, x)
+    z = M(r)
+    p = z
+    rz = blas.dotc(r, z)
+    state.record_(blas.nrm2(r), torch.ones((), dtype=torch.bool, device=b.device))
+    active = state.keep_going()
+    while bool(active):                       # the one host read per block
+        for _ in range(CHECK_EVERY):
+            y = multiply(A, p)
+            alpha = torch.where(active, rz / blas.dotc(y, p), 0)
+            x = torch.addcmul(x, alpha, p)
+            r = torch.addcmul(r, alpha, y, value=-1)
+            z = M(r)
+            rz_new = blas.dotc(r, z)
+            p = torch.where(active, torch.addcmul(z, rz_new / rz, p), p)
+            rz = torch.where(active, rz_new, rz)
+            state.record_(blas.nrm2(r), active)
+            active = torch.logical_and(active, state.keep_going())
+    monitor.absorb_state(state)
+    return x, monitor

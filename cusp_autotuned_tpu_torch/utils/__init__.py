@@ -1,0 +1,6 @@
+from cusp_autotuned_tpu_torch.utils.exceptions import (
+    CuspException, FormatException, FormatConversionException,
+    NotImplementedException, InvalidInputException,
+)
+from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up, pad_to
+from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype

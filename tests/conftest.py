@@ -28,3 +28,8 @@ if not os.environ.get("CUSP_TPU_TEST_NO_COMPILE_CACHE"):
                       os.path.join(os.path.dirname(__file__), "..",
                                    ".xla_cache"))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")

@@ -1,0 +1,38 @@
+"""Helpers for the parity tests between the JAX package and its PyTorch port:
+one input, built once from a numpy seed, handed to both packages."""
+
+import numpy as np
+import scipy.sparse as sp
+
+from cusp_autotuned_tpu_torch import interop
+
+FIELDS = {"coo": ("row", "col", "val"), "csr": ("indptr", "col", "val", "row"),
+          "dia": ("data",)}
+
+
+def port_of(A, device="cpu"):
+    """The port's container holding the arrays of the JAX container A."""
+    arrays = {f: np.asarray(getattr(A, f)) for f in FIELDS[A.format]}
+    return interop.from_reference(A.format, arrays, A.shape, A.nnz,
+                                  offsets=getattr(A, "offsets", None),
+                                  device=device)
+
+
+def banded(n_rows, n_cols, offsets, seed):
+    """A scipy matrix with seeded random values on the given diagonals."""
+    rng = np.random.RandomState(seed)
+    return sp.diags([rng.uniform(0.5, 2.0, n_rows) for _ in offsets], offsets,
+                    shape=(n_rows, n_cols)).tocoo()
+
+
+def skewed_random(n, seed, max_len=64):
+    """A scipy CSR matrix with seeded random columns and values whose row
+    lengths follow a heavy-tailed (Pareto) law, capped at max_len."""
+    rng = np.random.RandomState(seed)
+    lengths = np.minimum(1 + rng.pareto(1.5, n).astype(np.int64), max_len)
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    col = rng.randint(0, n, indptr[-1])
+    val = rng.uniform(-1.0, 1.0, indptr[-1])
+    S = sp.csr_matrix((val, col, indptr), shape=(n, n))
+    S.sum_duplicates()
+    return S
