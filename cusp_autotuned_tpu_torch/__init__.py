@@ -9,21 +9,28 @@ kernel that the reference wrote in Pallas for the TPU becomes a CUDA kernel
 under `csrc/`, built on first use (kernels/_build.py); beside each sits a
 plain PyTorch version, which the wrapper takes for CPU tensors.
 
-Ported so far (the cg.cu main path):
-  formats/   COO, CSR, DIA
-  ops/       convert (coo/csr/dia), multiply, BLAS-1 for CG
-  kernels/   DIA SpMV and CSR SpMV kernels, the variant registry
-  gallery/   stencil generator, poisson5pt, poisson9pt
+Ported so far (the cg.cu main path and the autotuner):
+  formats/   COO, CSR, DIA, ELL, ELLR, HYB
+  ops/       convert, multiply (with the autotune hook), BLAS-1 for CG
+  kernels/   DIA, CSR, row-binned CSR and nnz-balanced COO SpMV kernels,
+             the variant registry and the tuning spaces
+  autotune/  the KTT-style tuner, tuned_operator, choose_format, and the
+             stream-triad calibration
+  gallery/   stencil generator, poisson5pt, poisson9pt, random, the fork's
+             diagonal generators
   solvers/   Monitor, cg
   backend/   scipy oracle
   operators  Identity/Function/Planned operators
   interop    containers from the JAX package's arrays (tests)
+
+Every entry point that builds tensors builds them on the CUDA device unless
+the caller names another (utils.config.resolve_device).
 """
 
 __version__ = "0.1.0"
 
 from cusp_autotuned_tpu_torch import (
-    backend, formats, gallery, kernels, ops, solvers, utils,
+    autotune, backend, formats, gallery, kernels, ops, solvers, utils,
 )
 from cusp_autotuned_tpu_torch.operators import (
     IdentityOperator, FunctionOperator, PlannedOperator, planned_operator,

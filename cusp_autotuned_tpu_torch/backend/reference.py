@@ -9,10 +9,11 @@ import numpy as np
 import scipy.sparse as sp
 
 from cusp_autotuned_tpu_torch.formats.base import host_array
+from cusp_autotuned_tpu_torch.utils.config import resolve_device
 
 
 def to_scipy(A):
-    """A COO/CSR/DIA container as a scipy.sparse matrix."""
+    """A port container as a scipy.sparse matrix."""
     from cusp_autotuned_tpu_torch import formats as F
 
     if isinstance(A, F.COO):
@@ -35,15 +36,24 @@ def to_scipy(A):
             valid = (j >= 0) & (j < n)
             sdata[d, j[valid]] = data[d, i[valid]]
         return sp.dia_matrix((sdata, np.asarray(A.offsets)), shape=A.shape)
+    if isinstance(A, (F.ELL, F.ELLR)):
+        col, val = host_array(A.col), host_array(A.val)
+        slot, r = np.nonzero(col != F.INVALID_INDEX)
+        return sp.coo_matrix((val[slot, r], (r, col[slot, r])), shape=A.shape)
+    if isinstance(A, F.HYB):
+        return (to_scipy(A.ell) + to_scipy(A.coo)).tocoo()
     raise TypeError(f"cannot convert {type(A)} to scipy")
 
 
-def from_scipy(S, fmt: str = "csr", dtype=None, device="cpu"):
+def from_scipy(S, fmt: str = "csr", dtype=None, device=None):
+    """A scipy matrix as the port's `fmt` container on `device` (by default
+    the CUDA device); it is assembled and converted on the host."""
     from cusp_autotuned_tpu_torch.formats.coo import coo_matrix
     from cusp_autotuned_tpu_torch.ops.convert import convert
+    device = resolve_device(device)
     S = S.tocoo()
-    return convert(coo_matrix(S.row, S.col, S.data, S.shape, dtype=dtype),
-                   fmt).to(device)
+    return convert(coo_matrix(S.row, S.col, S.data, S.shape, dtype=dtype,
+                              device="cpu"), fmt).to(device)
 
 
 def reference_spmv(A, x) -> np.ndarray:

@@ -40,8 +40,8 @@ __global__ void csr_spmv_kernel(const int* __restrict__ indptr,
 
 template <typename Store, typename Acc>
 static int launch(const void* indptr, const void* col, const void* val,
-                  const void* x, void* y, int m, void* stream) {
-  const int block = 256;  // 8 rows per block
+                  const void* x, void* y, int m, int block, void* stream) {
+  // block / 32 rows per block; the block size is a tuning axis
   csr_spmv_kernel<Store, Acc><<<grid_for(32LL * m, block), block, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(col),
@@ -53,18 +53,22 @@ static int launch(const void* indptr, const void* col, const void* val,
 extern "C" {
 
 int cusp_csr_spmv_f32(const void* indptr, const void* col, const void* val,
-                      const void* x, void* y, int m, void* stream) {
-  return launch<float, float>(indptr, col, val, x, y, m, stream);
+                      const void* x, void* y, int m, int block,
+                      void* stream) {
+  return launch<float, float>(indptr, col, val, x, y, m, block, stream);
 }
 
 int cusp_csr_spmv_bf16(const void* indptr, const void* col, const void* val,
-                       const void* x, void* y, int m, void* stream) {
-  return launch<__nv_bfloat16, float>(indptr, col, val, x, y, m, stream);
+                       const void* x, void* y, int m, int block,
+                       void* stream) {
+  return launch<__nv_bfloat16, float>(indptr, col, val, x, y, m, block,
+                                      stream);
 }
 
 int cusp_csr_spmv_f64(const void* indptr, const void* col, const void* val,
-                      const void* x, void* y, int m, void* stream) {
-  return launch<double, double>(indptr, col, val, x, y, m, stream);
+                      const void* x, void* y, int m, int block,
+                      void* stream) {
+  return launch<double, double>(indptr, col, val, x, y, m, block, stream);
 }
 
 }  // extern "C"

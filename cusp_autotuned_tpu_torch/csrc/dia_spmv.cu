@@ -12,7 +12,8 @@
 // x bound in its zero padding; this kernel checks 0 <= i + off < n itself,
 // so x needs no padding.  Sums run in the accumulation type (f32 for f32 and
 // bf16 storage, f64 for f64), diagonal by diagonal in offset order, as the
-// plain version adds them.
+// plain version adds them.  The block size is a tuning axis (the fork's
+// BLOCK_SIZE, dia_multiply.h:24-55).
 #include "common.cuh"
 
 template <typename Store, typename Acc>
@@ -34,8 +35,8 @@ __global__ void dia_spmv_kernel(const Store* __restrict__ data,
 
 template <typename Store, typename Acc>
 static int launch(const void* data, const void* offsets, int k, long long pitch,
-                  const void* x, void* y, int m, int n, void* stream) {
-  const int block = 256;
+                  const void* x, void* y, int m, int n, int block,
+                  void* stream) {
   dia_spmv_kernel<Store, Acc><<<grid_for(m, block), block, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Store*>(data), static_cast<const int*>(offsets), k,
@@ -47,21 +48,23 @@ extern "C" {
 
 int cusp_dia_spmv_f32(const void* data, const void* offsets, int k,
                       long long pitch, const void* x, void* y, int m, int n,
-                      void* stream) {
-  return launch<float, float>(data, offsets, k, pitch, x, y, m, n, stream);
+                      int block, void* stream) {
+  return launch<float, float>(data, offsets, k, pitch, x, y, m, n, block,
+                              stream);
 }
 
 int cusp_dia_spmv_bf16(const void* data, const void* offsets, int k,
                        long long pitch, const void* x, void* y, int m, int n,
-                       void* stream) {
+                       int block, void* stream) {
   return launch<__nv_bfloat16, float>(data, offsets, k, pitch, x, y, m, n,
-                                      stream);
+                                      block, stream);
 }
 
 int cusp_dia_spmv_f64(const void* data, const void* offsets, int k,
                       long long pitch, const void* x, void* y, int m, int n,
-                      void* stream) {
-  return launch<double, double>(data, offsets, k, pitch, x, y, m, n, stream);
+                      int block, void* stream) {
+  return launch<double, double>(data, offsets, k, pitch, x, y, m, n, block,
+                                stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,16 @@
-"""Sparse containers (counterpart of cusp_autotuned_tpu/formats; COO, CSR and
-DIA are ported so far)."""
+"""Sparse containers (counterpart of cusp_autotuned_tpu/formats; COO, CSR,
+DIA, ELL, ELLR and HYB are ported so far)."""
 
 from cusp_autotuned_tpu_torch.formats.base import MatrixBase
 from cusp_autotuned_tpu_torch.formats.coo import COO, coo_matrix
 from cusp_autotuned_tpu_torch.formats.csr import CSR, csr_matrix
 from cusp_autotuned_tpu_torch.formats.dia import DIA, dia_matrix
+from cusp_autotuned_tpu_torch.formats.ell import (
+    ELL, ELLR, ell_matrix, ellr_matrix, INVALID_INDEX,
+)
+from cusp_autotuned_tpu_torch.formats.hyb import HYB, hyb_matrix
 
-SPARSE_FORMATS = ("coo", "csr", "dia")
+SPARSE_FORMATS = ("coo", "csr", "dia", "ell", "ellr", "hyb")
 
 
 def is_sparse(a) -> bool:

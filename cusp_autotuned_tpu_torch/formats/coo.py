@@ -17,6 +17,7 @@ import torch
 from cusp_autotuned_tpu_torch.formats.base import (
     MatrixBase, host_array, index_tensor, value_tensor,
 )
+from cusp_autotuned_tpu_torch.utils.config import resolve_device
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up, pad_to
 
 
@@ -32,9 +33,11 @@ class COO(MatrixBase):
 
 
 def coo_matrix(row, col, val, shape, *, sort: bool = True, dtype=None,
-               device="cpu") -> COO:
+               device=None) -> COO:
     """Build a COO container from host arrays: sort by row then column and
-    pad to the reference's lane-aligned length."""
+    pad to the reference's lane-aligned length.  It lands on `device`, by
+    default the CUDA device (utils.config.resolve_device)."""
+    device = resolve_device(device)
     row = np.asarray(host_array(row), dtype=np.int32)
     col = np.asarray(host_array(col), dtype=np.int32)
     val = host_array(val)

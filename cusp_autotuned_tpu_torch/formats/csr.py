@@ -18,6 +18,7 @@ import torch
 from cusp_autotuned_tpu_torch.formats.base import (
     MatrixBase, host_array, index_tensor, value_tensor,
 )
+from cusp_autotuned_tpu_torch.utils.config import resolve_device
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up, pad_to
 
 
@@ -33,7 +34,10 @@ class CSR(MatrixBase):
     format = "csr"
 
 
-def csr_matrix(indptr, col, val, shape, *, dtype=None, device="cpu") -> CSR:
+def csr_matrix(indptr, col, val, shape, *, dtype=None, device=None) -> CSR:
+    """Build a CSR container from host arrays on `device`, by default the
+    CUDA device (utils.config.resolve_device)."""
+    device = resolve_device(device)
     indptr = np.asarray(host_array(indptr), dtype=np.int32)
     col = np.asarray(host_array(col), dtype=np.int32)
     val = host_array(val)

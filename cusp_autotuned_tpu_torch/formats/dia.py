@@ -18,6 +18,7 @@ import torch
 from cusp_autotuned_tpu_torch.formats.base import (
     MatrixBase, host_array, value_tensor,
 )
+from cusp_autotuned_tpu_torch.utils.config import resolve_device
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up
 
 
@@ -48,8 +49,10 @@ class DIA(MatrixBase):
 
 
 def dia_matrix(offsets, data, shape, *, nnz=None, dtype=None,
-               device="cpu") -> DIA:
-    """Build from explicit diagonals. data[d, i] = A[i, i + offsets[d]]."""
+               device=None) -> DIA:
+    """Build from explicit diagonals. data[d, i] = A[i, i + offsets[d]].
+    It lands on `device`, by default the CUDA device."""
+    device = resolve_device(device)
     offsets = np.asarray(offsets, dtype=np.int32)
     data = host_array(data)
     m, n = int(shape[0]), int(shape[1])

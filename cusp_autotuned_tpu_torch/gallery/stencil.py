@@ -10,15 +10,18 @@ import torch
 
 from cusp_autotuned_tpu_torch.formats.coo import coo_matrix
 from cusp_autotuned_tpu_torch.ops.convert import convert
+from cusp_autotuned_tpu_torch.utils.config import resolve_device
 
 
 def generate_matrix_from_stencil(stencil, grid, format: str = "csr",
                                  dtype: torch.dtype = torch.float32,
-                                 device="cpu"):
+                                 device=None):
     """stencil: iterable of (offset_tuple, value); grid: dim sizes tuple.
     Returns the N×N operator (N = prod(grid)) with out-of-grid neighbours
     dropped (Dirichlet truncation).  The matrix is assembled and converted
-    on the host and uploaded to `device` once."""
+    on the host and uploaded to `device` once (by default the CUDA
+    device)."""
+    device = resolve_device(device)
     grid = tuple(int(g) for g in grid)
     ndim = len(grid)
     N = int(np.prod(grid))
@@ -50,5 +53,5 @@ def generate_matrix_from_stencil(stencil, grid, format: str = "csr",
     row = np.concatenate(rows).astype(np.int32)
     col = np.concatenate(cols).astype(np.int32)
     val = np.concatenate(vals)
-    A = coo_matrix(row, col, val, (N, N), sort=True, dtype=dtype)
+    A = coo_matrix(row, col, val, (N, N), sort=True, dtype=dtype, device="cpu")
     return (A if format == "coo" else convert(A, format)).to(device)

@@ -2,22 +2,28 @@
 
 A JAX container is passed as numpy arrays plus its static fields, so this
 module imports neither JAX nor the JAX package: the parity tests use it to
-run both packages on one matrix.  The arrays keep the reference's padded
-layout, which the port's containers share.
+run both packages on one matrix.  COO, CSR and DIA arrays keep the
+reference's padded layout, which the port's containers share; ELL slot
+arrays are cut from the reference's 128-multiple row count to the matrix's
+rows.
 """
 
 from __future__ import annotations
 
 from cusp_autotuned_tpu_torch import formats as F
 from cusp_autotuned_tpu_torch.formats.base import index_tensor, value_tensor
+from cusp_autotuned_tpu_torch.utils.config import resolve_device
 
 
 def from_reference(fmt: str, arrays: dict, shape, nnz, offsets=None,
-                   device="cpu"):
-    """The port's `fmt` container ('coo', 'csr' or 'dia') holding `arrays`,
-    the fields of the JAX container as numpy arrays (COO: row, col, val;
-    CSR: indptr, col, val, row; DIA: data), with its shape, nnz and, for
-    DIA, its offsets."""
+                   device=None):
+    """The port's `fmt` container holding `arrays`, the fields of the JAX
+    container as numpy arrays (COO: row, col, val; CSR: indptr, col, val,
+    row; DIA: data; ELL: col, val; ELLR: col, val, row_lengths; HYB: the
+    ELL part's as ell_col, ell_val and the COO part's as coo_row, coo_col,
+    coo_val), with its shape, nnz and, for DIA, its offsets.  It lands on
+    `device`, by default the CUDA device."""
+    device = resolve_device(device)
     shape = (int(shape[0]), int(shape[1]))
     if fmt == "coo":
         return F.COO(row=index_tensor(arrays["row"], device),
@@ -36,4 +42,16 @@ def from_reference(fmt: str, arrays: dict, shape, nnz, offsets=None,
         return F.DIA(data=value_tensor(arrays["data"], None, device),
                      offsets=tuple(int(o) for o in offsets),
                      shape=shape, nnz=int(nnz))
+    if fmt == "ell":
+        return F.ell_matrix(arrays["col"], arrays["val"], shape, device=device)
+    if fmt == "ellr":
+        return F.ellr_matrix(arrays["col"], arrays["val"], shape,
+                             row_lengths=arrays["row_lengths"], device=device)
+    if fmt == "hyb":
+        ell = F.ell_matrix(arrays["ell_col"], arrays["ell_val"], shape,
+                           device=device)
+        coo = from_reference("coo", {k: arrays[f"coo_{k}"]
+                                     for k in ("row", "col", "val")},
+                             shape, int(nnz) - ell.nnz, device=device)
+        return F.hyb_matrix(ell, coo)
     raise ValueError(f"unknown format {fmt!r}")

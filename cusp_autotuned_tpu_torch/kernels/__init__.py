@@ -3,5 +3,5 @@ Hopper, behind the registry that build_spmv reads (counterpart of
 cusp_autotuned_tpu/kernels)."""
 
 from cusp_autotuned_tpu_torch.kernels.variants import (
-    build_spmv, default_config, VARIANTS,
+    build_spmv, default_config, tuning_space, VARIANTS,
 )

@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `cusp_autotuned_tpu_torch/csrc/` are compiled by nvcc, on
-first use, into one shared library with a plain C interface for Hopper
-(sm_90a), and loaded with ctypes.  The library lands in
-`cusp_autotuned_tpu_torch/_build/` under a name keyed by a hash of the
-sources and flags, so an edited source builds anew and an unchanged one is
-reused.  Nothing here runs at import: the package imports on machines
-without nvcc or a GPU, where the kernel wrappers take their plain versions
-for CPU tensors.
+first use, for Hopper (sm_90a): one nvcc process per source, all started
+together, then one link into a shared library with a plain C interface,
+loaded with ctypes.  The library lands in `cusp_autotuned_tpu_torch/_build/`
+under a name keyed by a hash of the sources and flags, so an edited source
+builds anew and an unchanged one is reused.  Nothing here runs at import:
+the package imports on machines without nvcc or a GPU, where the kernel
+wrappers take their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,22 +18,37 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
+
+from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TYPED = ("f32", "bf16", "f64")
+# symbol stem -> (argument types, storage suffixes); every function returns
+# its launch's cudaError_t as an int
 _SIGNATURES = {
-    # data, offsets, k, pitch, x, y, m, n, stream
-    "cusp_dia_spmv": (_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _vp),
-    # indptr, col, val, x, y, m, stream
-    "cusp_csr_spmv": (_vp, _vp, _vp, _vp, _vp, _i32, _vp),
+    # data, offsets, k, pitch, x, y, m, n, block, stream
+    "cusp_dia_spmv": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32, _vp),
+                      _TYPED),
+    # indptr, col, val, x, y, m, block, stream
+    "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp), _TYPED),
+    # indptr, col, val, perm, bins (host), nbins, x, y, block, stream
+    "cusp_binned_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp),
+                         _TYPED),
+    # row, col, val, nnz, x, y, carry_row, carry_val, vpt, block, stream
+    "cusp_coo_spmv": ((_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp, _i32, _i32,
+                       _vp), _TYPED),
+    # x, y, n, block, stream
+    "cusp_stream_triad": ((_vp, _vp, _i64, _i32, _vp), ("f32",)),
 }
 
 
@@ -46,6 +61,20 @@ def _nvcc() -> str:
                        "are built from source on first use")
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise on the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
@@ -56,17 +85,18 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libcusp_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in files if p.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, so)      # atomic: a concurrent builder sees all or nothing
+        nvcc = _nvcc()
+        sources = [p for p in files if p.suffix == ".cu"]
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, p.stem + ".o") for p in sources]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+                      for p, o in zip(sources, objs)])
+            out = os.path.join(tmp, so.name)
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]])
+            os.replace(out, so)  # atomic: a concurrent build sees all or nothing
     lib = ctypes.CDLL(str(so))
-    for stem, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "bf16", "f64"):
+    for stem, (argtypes, suffixes) in _SIGNATURES.items():
+        for suffix in suffixes:
             fn = getattr(lib, f"{stem}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -95,3 +125,16 @@ def launch(stem: str, store: torch.dtype, device: torch.device, *args) -> None:
     if code != 0:
         raise RuntimeError(f"{stem} launch failed: "
                            f"{lib.cusp_error_string(code).decode()}")
+
+
+DEFAULT_BLOCK = 256
+
+
+def block_size(config) -> int:
+    """Threads per block of a launch: the `block_size` tuning axis (the
+    fork's BLOCK_SIZE), 0 or unset for the default."""
+    block = int((config or {}).get("block_size") or DEFAULT_BLOCK)
+    if block % 32 or not 32 <= block <= 1024:
+        raise NotImplementedException(
+            f"block_size must be a multiple of 32 up to 1024 (got {block})")
+    return block

@@ -1,0 +1,152 @@
+"""Row-binned CSR SpMV: the CUDA kernel's wrapper, its plain PyTorch
+version, and the planner.
+
+Replaces the JAX package's row-lane-binned Pallas kernels at their SpMV
+sites, `_binned_kernel` (cusp_autotuned_tpu/kernels/pallas_binned.py:193)
+and `_streamed_kernel` (:274), with one kernel, `csrc/binned_spmv.cu`, in
+the style of the fork's CSR kernel family: the host plan sorts the rows
+into bins by length, each bin runs with its own number of lanes per row,
+and rows longer than `hub_cap` get a block each (in place of the JAX
+segment-sum spill).  With a fixed `threads_per_row` every other row uses
+that one group size.  The SpMM site (`_binned_spmm_kernel`) is not ported
+yet: a 2-D x raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cusp_autotuned_tpu_torch.formats.base import host_array
+from cusp_autotuned_tpu_torch.kernels import _build
+from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
+from cusp_autotuned_tpu_torch.utils.exceptions import (
+    FormatConversionException, InvalidInputException, NotImplementedException,
+)
+
+GROUPS = (1, 2, 4, 8, 16, 32)      # lanes per row of the sub-warp bins
+HUB_CAP = 1024                     # longer rows get a block each
+ENTRIES_PER_LANE = 4               # the length binning's target
+
+
+def plan_bins(indptr, threads_per_row=0, hub_cap=HUB_CAP):
+    """(perm, bins) for host CSR offsets: `perm` lists the rows bin by bin,
+    and `bins` holds one (row_start, count, group) per non-empty bin, group
+    0 being one block per row.  threads_per_row 0 bins by length: the
+    fewest lanes that leave each at most ENTRIES_PER_LANE entries."""
+    lengths = np.diff(np.asarray(indptr, dtype=np.int64))
+    if threads_per_row:
+        group = np.full(lengths.shape, int(threads_per_row), np.int64)
+    else:
+        need = np.maximum(-(-lengths // ENTRIES_PER_LANE), 1)
+        group = np.minimum(1 << np.ceil(np.log2(need)).astype(np.int64), 32)
+    group[lengths > hub_cap] = 0
+    order = (*GROUPS, 0)                 # bin order: sub-warp groups, then hubs
+    rank_of = np.zeros(33, np.int64)
+    rank_of[list(order)] = np.arange(len(order))
+    rank = rank_of[group]
+    perm = np.argsort(rank, kind="stable").astype(np.int32)
+    counts = np.bincount(rank, minlength=len(order))
+    starts = np.cumsum(counts) - counts
+    bins = [(int(starts[r]), int(counts[r]), order[r])
+            for r in range(len(order)) if counts[r]]
+    return perm, np.asarray(bins, dtype=np.int32).reshape(-1, 3)
+
+
+def binned_spmv_plain(indptr, col, val, perm, bins, x, num_rows):
+    """The plan walked bin by bin in PyTorch: each bin's rows gather their
+    entries and add them up with an index_add_, accumulated in x's dtype.
+    A row that no bin lists stays NaN, so a broken plan cannot pass."""
+    y = x.new_full((num_rows,), float("nan"))
+    for start, count, _ in bins.tolist():
+        rows = perm[start:start + count].long()
+        lo, hi = indptr[rows].long(), indptr[rows + 1].long()
+        lens = hi - lo
+        seg = torch.repeat_interleave(torch.arange(count, device=x.device), lens)
+        pos = (torch.arange(int(lens.sum()), device=x.device)
+               + torch.repeat_interleave(lo - (torch.cumsum(lens, 0) - lens), lens))
+        prod = val[pos].to(x.dtype) * torch.index_select(x, 0, col[pos])
+        y[rows] = x.new_zeros(count).index_add_(0, seg, prod)
+    return y
+
+
+def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLOCK):
+    """y = A @ x through the row bins.  On CPU tensors this is the plain
+    version; on CUDA tensors it launches the kernel (bins, a small host
+    tensor, travel as kernel arguments), and raises on what the kernel does
+    not take."""
+    if x.dim() != 1:
+        raise NotImplementedException(
+            "the binned kernel takes 1-D x; SpMM is not ported yet")
+    m, n = shape
+    if x.device.type == "cpu" and val.device.type == "cpu":
+        return binned_spmv_plain(indptr, col, val, perm, bins, x, m)
+    if not (indptr.device == col.device == val.device == perm.device
+            == x.device) or x.device.type != "cuda" or bins.device.type != "cpu":
+        raise InvalidInputException(
+            f"binned kernel needs indptr, col, val, perm and x on one CUDA "
+            f"device and bins on the host (got {indptr.device}, {col.device}, "
+            f"{val.device}, {perm.device}, {x.device}; bins {bins.device})")
+    if val.dtype not in _build.STORAGE or x.dtype != _build.STORAGE[val.dtype][1]:
+        raise InvalidInputException(
+            f"binned kernel takes f32/bf16 values with f32 x, or f64 with f64 "
+            f"(got {val.dtype} values, {x.dtype} x)")
+    if not all(t.dtype == torch.int32 for t in (indptr, col, perm, bins)):
+        raise InvalidInputException("indptr, col, perm and bins must be int32")
+    if (indptr.shape != (m + 1,) or perm.shape != (m,) or x.shape != (n,)
+            or col.shape != val.shape or bins.dim() != 2 or bins.shape[1] != 3):
+        raise InvalidInputException(
+            f"shape mismatch: indptr {tuple(indptr.shape)}, perm "
+            f"{tuple(perm.shape)}, col {tuple(col.shape)}, val "
+            f"{tuple(val.shape)}, x {tuple(x.shape)}, bins {tuple(bins.shape)}, "
+            f"matrix {shape}")
+    if not all(t.is_contiguous() for t in (indptr, col, val, perm, bins, x)):
+        raise InvalidInputException("binned kernel needs contiguous tensors")
+    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    if m:
+        _build.launch("cusp_binned_spmv", val.dtype, x.device, indptr, col, val,
+                      perm, bins, bins.shape[0], x, y, block)
+        binned_spmv.launches += 1
+    return y
+
+
+binned_spmv.launches = 0
+
+
+def build_binned(A, config):
+    """Plan A for the binned kernel: its CSR form (other formats converted
+    on the host), the row bins for `threads_per_row` and `hub_cap`, values
+    in the storage dtype that `value_dtype` names, `block_size` threads per
+    block.  An empty matrix raises FormatConversionException (the default
+    path serves it), as in the JAX package."""
+    if A.dtype.is_complex:
+        raise NotImplementedException("binned kernel supports real dtypes only")
+    tpr = int(config.get("threads_per_row") or 0)
+    if tpr and tpr not in GROUPS:
+        raise NotImplementedException(
+            f"threads_per_row must be 0 (by length) or one of {GROUPS}")
+    hub_cap = int(config.get("hub_cap") or HUB_CAP)
+    block = _build.block_size(config)
+    if A.format != "csr":
+        from cusp_autotuned_tpu_torch.ops.convert import convert
+        A = convert(A, "csr")
+    if A.nnz == 0:
+        raise FormatConversionException("empty matrix — use the default path")
+    perm, bins = plan_bins(host_array(A.indptr), tpr, hub_cap)
+    arrays = {"indptr": A.indptr, "col": A.col,
+              "val": A.val.to(plan_value_dtype(config, A.dtype)).contiguous(),
+              "perm": torch.from_numpy(perm).to(A.device),
+              "bins": torch.from_numpy(bins)}
+    shape = A.shape
+
+    def apply(arrays, x):
+        return binned_spmv(arrays["indptr"], arrays["col"], arrays["val"],
+                           arrays["perm"], arrays["bins"], x, shape, block)
+
+    def fn(x):
+        return apply(arrays, x)
+
+    fn.planned_arrays = arrays
+    fn.apply = apply
+    fn.plan_stats = {"impl": "binned", "bins": bins.tolist()}
+    return fn

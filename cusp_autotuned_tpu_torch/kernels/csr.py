@@ -6,7 +6,9 @@ Replaces the JAX package's Pallas one-hot kernel, `_onehot_kernel`
 `csrc/csr_spmv.cu`: one warp per row, no atomics.  The one-hot gather and
 scatter, the block and window planning and the VMEM cap of the TPU kernel
 have no counterpart here; see the source for why.  COO matrices reach the
-kernel through a host conversion to CSR when the plan is built.
+kernel through a host conversion to CSR when the plan is built, and so do
+ELL, ELLR and HYB (the JAX package plans every format for its one-hot
+kernel from the matrix's COO view, kernels/pallas_spmv.py:24-27).
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ def csr_spmv_plain(row, col, val, x, num_rows):
     return y[:num_rows]
 
 
-def csr_spmv(indptr, row, col, val, x, shape):
+def csr_spmv(indptr, row, col, val, x, shape, block=_build.DEFAULT_BLOCK):
     """y = A @ x for a CSR matrix.  On CPU tensors this is the plain version
     (which reads the expanded `row`); on CUDA tensors it launches the kernel
-    (which reads `indptr`), and raises on what the kernel does not take."""
+    (which reads `indptr`) with `block` threads per block, and raises on
+    what the kernel does not take."""
     if x.dim() != 1:
         raise NotImplementedException("the CSR kernel takes 1-D x only")
     m, n = shape
@@ -62,7 +65,7 @@ def csr_spmv(indptr, row, col, val, x, shape):
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_csr_spmv", val.dtype, x.device,
-                      indptr, col, val, x, y, m)
+                      indptr, col, val, x, y, m, block)
         csr_spmv.launches += 1
     return y
 
@@ -71,19 +74,22 @@ csr_spmv.launches = 0
 
 
 def build_csr(A, config):
-    """Plan A (CSR, or COO converted to CSR on the host) for the kernel,
-    with values in the storage dtype that `value_dtype` names."""
-    if A.format == "coo":
+    """Plan A for the kernel: CSR as it is; any other format through its
+    entries (ELL's -1 slots dropped) converted to CSR on the host.  Values
+    are in the storage dtype that `value_dtype` names, and the launch has
+    `block_size` threads per block."""
+    if A.format != "csr":
         from cusp_autotuned_tpu_torch.ops.convert import convert
         A = convert(A, "csr")
     store = plan_value_dtype(config, A.dtype)
+    block = _build.block_size(config)
     arrays = {"indptr": A.indptr, "row": A.row, "col": A.col,
               "val": A.val.to(store).contiguous()}
     shape = A.shape
 
     def apply(arrays, x):
         return csr_spmv(arrays["indptr"], arrays["row"], arrays["col"],
-                        arrays["val"], x, shape)
+                        arrays["val"], x, shape, block)
 
     def fn(x):
         return apply(arrays, x)

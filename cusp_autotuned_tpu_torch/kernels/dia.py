@@ -45,11 +45,11 @@ def dia_spmv_plain(data, offsets, x, shape):
     return acc[:m]
 
 
-def dia_spmv(data, offsets, x, shape):
+def dia_spmv(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
     """y = A @ x for a DIA matrix with diagonals `data` (k, pitch) and int32
     `offsets` (k,).  On CPU tensors this is the plain version; on CUDA
-    tensors it launches the kernel, and raises on what the kernel does not
-    take."""
+    tensors it launches the kernel with `block` threads per block, and
+    raises on what the kernel does not take."""
     if x.dim() != 1:
         raise NotImplementedException(
             "the DIA kernel takes 1-D x; DIA x dense blocks are not ported yet")
@@ -76,7 +76,7 @@ def dia_spmv(data, offsets, x, shape):
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_dia_spmv", data.dtype, x.device,
-                      data, offsets, k, pitch, x, y, m, n)
+                      data, offsets, k, pitch, x, y, m, n, block)
         dia_spmv.launches += 1
     return y
 
@@ -86,8 +86,10 @@ dia_spmv.launches = 0
 
 def build_dia(A, config):
     """Plan A (a DIA container) for the kernel: diagonal data in the storage
-    dtype that `value_dtype` names, offsets as a device tensor."""
+    dtype that `value_dtype` names, offsets as a device tensor, launched
+    with `block_size` threads per block."""
     store = plan_value_dtype(config, A.dtype)
+    block = _build.block_size(config)
     arrays = {
         "data": A.data.to(store).contiguous(),
         "offsets": torch.tensor(A.offsets, dtype=torch.int32, device=A.device),
@@ -95,7 +97,7 @@ def build_dia(A, config):
     shape = A.shape
 
     def apply(arrays, x):
-        return dia_spmv(arrays["data"], arrays["offsets"], x, shape)
+        return dia_spmv(arrays["data"], arrays["offsets"], x, shape, block)
 
     def fn(x):
         return apply(arrays, x)

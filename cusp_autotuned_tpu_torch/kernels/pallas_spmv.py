@@ -1,6 +1,9 @@
 """Registry-facing entry point of the hand-written SpMV kernels (counterpart
 of cusp_autotuned_tpu/kernels/pallas_spmv.py, whose `pallas` impl the port
-calls `cuda`)."""
+calls `cuda`).  Every build function returns fn(x) -> y exposing
+`planned_arrays` and `apply`, so operators.planned_operator packages it; a
+plan that cannot be built raises FormatConversionException or
+NotImplementedException, which the tuner records as a skippable status."""
 
 from __future__ import annotations
 
@@ -11,8 +14,19 @@ def build(format_name, A, config):
     if format_name == "dia":
         from cusp_autotuned_tpu_torch.kernels.dia import build_dia
         return build_dia(A, config)
-    if format_name in ("csr", "coo"):
+    if format_name in ("csr", "coo", "ell", "ellr", "hyb"):
+        # the CSR kernel plans from the matrix's entries in any format
         from cusp_autotuned_tpu_torch.kernels.csr import build_csr
         return build_csr(A, config)
     raise NotImplementedException(
         f"cuda kernel for {format_name} not yet available")
+
+
+def build_binned(A, config):
+    from cusp_autotuned_tpu_torch.kernels.binned import build_binned as bb
+    return bb(A, config)
+
+
+def build_colsort(A, config):
+    from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort as bc
+    return bc(A, config)

@@ -1,17 +1,28 @@
-"""SpMV variant registry (counterpart of cusp_autotuned_tpu/kernels/variants.py).
+"""SpMV variant registry and per-format tuning spaces (counterpart of
+cusp_autotuned_tpu/kernels/variants.py).
 
 Every variant is a function build(A, config) -> fn(x) -> y.  The port's
-impls so far:
+impls:
 
-  dia       slices (plain shifted slices), cuda (csrc/dia_spmv.cu)
-  csr, coo  segsum (plain gather + index_add_), via_dia (re-lay the matrix
-            out as DIA and run an inner DIA impl, `dia_impl`), cuda
-            (csrc/csr_spmv.cu)
+  dia         slices (plain shifted slices), gather (plain masked gather),
+              cuda (csrc/dia_spmv.cu)
+  csr, coo    segsum (plain gather + index_add_)
+  ell         gather (plain slot gather)
+  ellr        rowlen (plain slot gather masked by row_lengths), gather
+  hyb         default (plain ELL pass + COO pass)
+  and, for csr/coo/ell/ellr/hyb:
+              via_dia (re-lay the matrix out as DIA and run the inner DIA
+              impl `dia_impl`), via_dense (densify, torch.matmul), cuda
+              (the matrix's entries planned as CSR for csrc/csr_spmv.cu),
+              binned (csrc/binned_spmv.cu), colsort (csrc/coo_spmv.cu)
 
 `cuda` stands where the JAX package has `pallas`.  For a matrix on a CUDA
 device the default impl is `cuda`, and via_dia's default `dia_impl` is
 `cuda`; on the CPU the defaults are the plain paths, as in the reference.
-The tuning spaces are not ported yet.
+The tuning spaces mirror the JAX package's with Hopper launch axes in place
+of its TPU axes (VMEM windows, lanes, int16 packing): `block_size`,
+`threads_per_row` and `values_per_thread`.  The JAX package's rcm_dia,
+colsort2 and routed impls are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,8 +30,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict
 
-from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
-from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
+import torch
+
+from cusp_autotuned_tpu_torch.autotune.space import TuningSpace
+from cusp_autotuned_tpu_torch.utils.config import get_config, plan_value_dtype
+from cusp_autotuned_tpu_torch.utils.exceptions import (
+    FormatConversionException, NotImplementedException,
+)
 
 
 def _build_dia_slices(A, config):
@@ -36,20 +52,32 @@ def _build_dia_slices(A, config):
     return fn
 
 
-def _build_csr_segsum(A, config):
-    from cusp_autotuned_tpu_torch.ops.multiply import spmv_csr
+def _build_dia_gather(A, config):
+    """One masked gather of x for every (diagonal, row) slot."""
+    m, n = A.shape
+    idx = (torch.arange(A.rows_padded, device=A.device)[None, :]
+           + torch.tensor(A.offsets, device=A.device)[:, None])
+    valid = (idx >= 0) & (idx < n)
+    idx = idx.clamp(0, n - 1)
 
     def fn(x):
-        return spmv_csr(A, x)
+        xg = torch.index_select(x, 0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+        data, mask = A.data.to(x.dtype), valid
+        if x.dim() == 2:
+            data, mask = data[..., None], mask[..., None]
+        return torch.where(mask, data * xg, 0).sum(0)[:m]
     return fn
 
 
-def _build_coo_segsum(A, config):
-    from cusp_autotuned_tpu_torch.ops.multiply import spmv_coo
+def _plain(spmv_name):
+    def build(A, config):
+        from cusp_autotuned_tpu_torch.ops import multiply
+        spmv = getattr(multiply, spmv_name)
 
-    def fn(x):
-        return spmv_coo(A, x)
-    return fn
+        def fn(x):
+            return spmv(A, x)
+        return fn
+    return build
 
 
 def _build_cuda(format_name):
@@ -57,6 +85,16 @@ def _build_cuda(format_name):
         from cusp_autotuned_tpu_torch.kernels import pallas_spmv
         return pallas_spmv.build(format_name, A, config)
     return build
+
+
+def _build_binned(A, config):
+    from cusp_autotuned_tpu_torch.kernels import pallas_spmv
+    return pallas_spmv.build_binned(A, config)
+
+
+def _build_colsort(A, config):
+    from cusp_autotuned_tpu_torch.kernels import pallas_spmv
+    return pallas_spmv.build_colsort(A, config)
 
 
 def _inner_dia_impl(config, D):
@@ -79,35 +117,118 @@ def _build_via_dia(A, config):
     return fn
 
 
+def _build_via_dense(A, config):
+    """Format-selection move: densify and run one dense product.  Viable
+    when the matrix fills at least a quarter of its dense form and that
+    form holds at most 32 MB, the JAX package's guard; otherwise the
+    skippable conversion failure, like via_dia's fill guard."""
+    from cusp_autotuned_tpu_torch.backend.reference import to_scipy
+    m, n = A.shape
+    dense_bytes = m * n * A.dtype.itemsize
+    fill = A.nnz / max(m * n, 1)
+    if fill < 0.25 or dense_bytes > (32 << 20):
+        raise FormatConversionException(
+            f"via_dense needs fill >= 0.25 and <= 32 MB dense data "
+            f"(fill {fill:.3f}, {dense_bytes >> 20} MB)")
+    D = torch.tensor(to_scipy(A).toarray(), dtype=A.dtype, device=A.device)
+
+    def fn(x):
+        return torch.matmul(D, x)
+    return fn
+
+
+_MOVES = {"via_dia": _build_via_dia, "via_dense": _build_via_dense,
+          "binned": _build_binned, "colsort": _build_colsort}
+
 VARIANTS: Dict[str, Dict[str, Callable]] = {
-    "dia": {
-        "slices": _build_dia_slices,
-        "cuda": _build_cuda("dia"),
-    },
-    "csr": {
-        "segsum": _build_csr_segsum,
-        "via_dia": _build_via_dia,
-        "cuda": _build_cuda("csr"),
-    },
-    "coo": {
-        "segsum": _build_coo_segsum,
-        "via_dia": _build_via_dia,
-        "cuda": _build_cuda("coo"),
-    },
+    "dia": {"slices": _build_dia_slices, "gather": _build_dia_gather,
+            "cuda": _build_cuda("dia")},
+    "csr": {"segsum": _plain("spmv_csr"), **_MOVES, "cuda": _build_cuda("csr")},
+    "coo": {"segsum": _plain("spmv_coo"), **_MOVES, "cuda": _build_cuda("coo")},
+    "ell": {"gather": _plain("spmv_ell"), **_MOVES, "cuda": _build_cuda("ell")},
+    "ellr": {"gather": _plain("spmv_ell"), "rowlen": _plain("spmv_ellr"),
+             **_MOVES, "cuda": _build_cuda("ellr")},
+    "hyb": {"default": _plain("spmv_hyb"), **_MOVES, "cuda": _build_cuda("hyb")},
 }
 
 _DEFAULTS = {
     "dia": {"impl": "slices"},
     "csr": {"impl": "segsum", "dia_impl": "none"},
     "coo": {"impl": "segsum", "dia_impl": "none"},
+    "ell": {"impl": "gather", "dia_impl": "none"},
+    "ellr": {"impl": "rowlen", "dia_impl": "none"},
+    "hyb": {"impl": "default", "dia_impl": "none"},
 }
 
+# impls of each format's tuning walk
+_SPACE_IMPLS = {
+    "csr": ("segsum", "via_dia", "via_dense", "cuda", "binned", "colsort"),
+    "coo": ("segsum", "via_dia", "via_dense", "cuda", "binned", "colsort"),
+    "ell": ("gather", "via_dia", "via_dense", "cuda", "binned", "colsort"),
+    "ellr": ("rowlen", "via_dia", "via_dense", "cuda", "binned", "colsort"),
+    "hyb": ("default", "via_dia", "cuda", "binned"),
+}
+BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
+THREADS_PER_ROW = (0, 1, 4, 32)           # binned: 0 = binned by length
+VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
 
-def default_config(A) -> Dict[str, Any]:
+
+def default_config(A, x=None) -> Dict[str, Any]:
+    """The untuned configuration: the kernel for a matrix on a CUDA device
+    and a vector x, the plain path otherwise (the kernels take no 2-D x
+    yet)."""
     cfg = dict(_DEFAULTS[A.format])
-    if A.device.type == "cuda":
+    if A.device.type == "cuda" and (x is None or x.dim() == 1):
         cfg["impl"] = "cuda"
     return cfg
+
+
+def tuning_space(A) -> TuningSpace:
+    """The constrained tuning space of a matrix's format.  `impl` is the
+    kernel strategy, including the format-selection moves; `dia_impl` the
+    inner DIA impl of via_dia; `block_size` the threads per block of every
+    CUDA launch; `threads_per_row` binned's lanes per row;
+    `values_per_thread` colsort's chunk.  Constraints pin each axis to 0 or
+    'none' where it does not apply, as the fork pins PREFETCH_TYPE.  The
+    opt-in `value_dtype` axis (CUSP_TORCH_TUNE_BF16) adds bf16 storage to
+    the DIA kernels."""
+    fmt = A.format
+    space = TuningSpace(parameters=[])
+    search_bf16 = get_config().search_low_precision and A.dtype.itemsize == 4
+    if fmt == "dia":
+        space.add_parameter("impl", ("slices", "gather", "cuda"))
+        space.add_parameter("block_size", (0, *BLOCK_SIZES))
+        space.add_constraint(("impl", "block_size"),
+                             lambda i, b: (b > 0) == (i == "cuda"))
+        if search_bf16:
+            space.add_parameter("value_dtype", ("none", "bfloat16"))
+            space.add_constraint(("impl", "value_dtype"),
+                                 lambda i, v: v == "none" or i in ("slices", "cuda"))
+        return space
+    if fmt not in _SPACE_IMPLS:
+        raise NotImplementedException(f"no tuning space for format {fmt!r}")
+    impls = _SPACE_IMPLS[fmt]
+    space.add_parameter("impl", impls)
+    space.add_parameter("dia_impl", ("none", "slices", "cuda"))
+    space.add_parameter("block_size", (0, *BLOCK_SIZES))
+    space.add_parameter("threads_per_row", THREADS_PER_ROW)
+    space.add_constraint(("impl", "dia_impl"),
+                         lambda i, d: (d == "none") == (i != "via_dia"))
+    space.add_constraint(
+        ("impl", "dia_impl", "block_size"),
+        lambda i, d, b: (b > 0) == (i in ("cuda", "binned", "colsort")
+                                    or d == "cuda"))
+    space.add_constraint(("impl", "threads_per_row"),
+                         lambda i, t: t == 0 or i == "binned")
+    if "colsort" in impls:
+        space.add_parameter("values_per_thread", (0, *VALUES_PER_THREAD))
+        space.add_constraint(("impl", "values_per_thread"),
+                             lambda i, v: (v > 0) == (i == "colsort"))
+    if search_bf16:
+        space.add_parameter("value_dtype", ("none", "bfloat16"))
+        space.add_constraint(("impl", "value_dtype"),
+                             lambda i, v: v == "none" or i == "via_dia")
+    return space
 
 
 def build_spmv(A, config: Dict[str, Any]) -> Callable:

@@ -3,4 +3,6 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     NotImplementedException, InvalidInputException,
 )
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up, pad_to
-from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
+from cusp_autotuned_tpu_torch.utils.config import (
+    get_config, plan_value_dtype, resolve_device,
+)

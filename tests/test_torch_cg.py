@@ -71,7 +71,7 @@ def test_blocked_stop_check_equals_per_iteration(monkeypatch, limit):
     """Reading the stop flag once per block of iterations, with the tail of
     the block masked, gives bit for bit the solve that reads it every
     iteration."""
-    A = gallery.poisson5pt(20, 20, format="dia")
+    A = gallery.poisson5pt(20, 20, format="dia", device="cpu")
     b = torch.from_numpy(_b(A.num_rows, np.float32))
     x_blk, m_blk = solvers.cg(A, b, monitor=Monitor(b, limit, 1e-5))
     monkeypatch.setattr(cg_module, "CHECK_EVERY", 1)
@@ -83,7 +83,7 @@ def test_blocked_stop_check_equals_per_iteration(monkeypatch, limit):
 
 def test_cg_defaults_and_x0():
     """No monitor: 500 iterations at rtol 1e-5; a solution as x0 stops at 0."""
-    A = gallery.poisson5pt(10, 10, format="csr")
+    A = gallery.poisson5pt(10, 10, format="csr", device="cpu")
     b = torch.from_numpy(_b(A.num_rows, np.float32))
     x, mon = solvers.cg(A, b)
     assert mon.iteration_limit() == 500 and mon.converged()

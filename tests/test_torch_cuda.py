@@ -7,8 +7,8 @@ a GPU machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (`--noconftest` because tests/conftest.py sets up JAX.)  The tolerances are
-the reference's own for its DIA and CSR kernels (tests/test_pallas.py:22
-and :97)."""
+the reference's own for its DIA, CSR and lane-binned kernels
+(tests/test_pallas.py:22, :97 and :161)."""
 
 import numpy as np
 import pytest
@@ -16,8 +16,15 @@ import scipy.sparse as sp
 import torch
 
 from cusp_autotuned_tpu_torch import gallery, solvers
-from cusp_autotuned_tpu_torch.backend.reference import from_scipy
-from cusp_autotuned_tpu_torch.kernels import default_config
+from cusp_autotuned_tpu_torch.autotune import ResultStatus, Tuner, calibrate
+from cusp_autotuned_tpu_torch.backend.reference import from_scipy, reference_spmv
+from cusp_autotuned_tpu_torch.kernels import build_spmv, default_config
+from cusp_autotuned_tpu_torch.kernels.binned import (
+    binned_spmv, binned_spmv_plain, build_binned,
+)
+from cusp_autotuned_tpu_torch.kernels.colsort import (
+    build_colsort, coo_spmv, coo_spmv_plain,
+)
 from cusp_autotuned_tpu_torch.kernels.csr import build_csr, csr_spmv, csr_spmv_plain
 from cusp_autotuned_tpu_torch.kernels.dia import build_dia, dia_spmv, dia_spmv_plain
 from cusp_autotuned_tpu_torch.operators import planned_operator
@@ -28,7 +35,8 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
 
 pytestmark = pytest.mark.cuda
 
-TOL = {"dia": dict(rtol=1e-5, atol=1e-4), "csr": dict(rtol=1e-4, atol=1e-4)}
+TOL = {"dia": dict(rtol=1e-5, atol=1e-4), "csr": dict(rtol=1e-4, atol=1e-4),
+       "rails": dict(rtol=1e-4, atol=1e-4)}
 
 
 @pytest.fixture
@@ -113,12 +121,15 @@ def test_f64_kernels_match_plain_on_card(cuda_device, fmt):
     torch.testing.assert_close(y, yp, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("fmt", ["dia", "csr", "coo"])
-def test_kernel_wrappers_raise_on_card(cuda_device, fmt):
+@pytest.mark.parametrize("fmt,impl", [("dia", "cuda"), ("csr", "cuda"),
+                                      ("coo", "cuda"), ("csr", "binned"),
+                                      ("coo", "colsort")])
+def test_kernel_wrappers_raise_on_card(cuda_device, fmt, impl):
     """A CUDA tensor the kernel cannot take raises; nothing falls back."""
     A = gallery.poisson5pt(20, 10, format=fmt, device=cuda_device)
-    fn = planned_operator(A, {"impl": "cuda"})
-    counter = dia_spmv if fmt == "dia" else csr_spmv
+    fn = planned_operator(A, {"impl": impl})
+    counter = {"binned": binned_spmv, "colsort": coo_spmv}.get(
+        impl, dia_spmv if fmt == "dia" else csr_spmv)
     before = counter.launches
     x = _x(A.num_cols, cuda_device)
     with pytest.raises(NotImplementedException):
@@ -147,3 +158,112 @@ def test_cg_kernel_operator_matches_plain_on_card(cuda_device):
     assert abs(mk.iteration_count() - mp.iteration_count()) <= 2
     assert nk >= mk.iteration_count() and np_ == 0
     torch.testing.assert_close(xk, xp, rtol=1e-3, atol=1e-3 * float(xp.abs().max()))
+
+
+def _rails_matrix(seed=2):
+    """Row lengths 0 to 4096: empty rows, one 4096-entry row, and lengths
+    that are multiples of no group size."""
+    rng = np.random.RandomState(seed)
+    lengths = np.r_[0, 4096, rng.randint(0, 70, 3000), 0, 33, 5, 1,
+                    rng.randint(0, 3, 2000), 1500]
+    indptr = np.r_[0, np.cumsum(lengths)]
+    n = 6000
+    col = np.concatenate([rng.choice(n, k, replace=False) for k in lengths])
+    return sp.csr_matrix((rng.uniform(-1, 1, indptr[-1]), col, indptr),
+                         shape=(lengths.size, n))
+
+
+@pytest.mark.parametrize("block", [128, 512])
+@pytest.mark.parametrize("tpr,hub_cap", [(0, 0), (0, 64), (1, 0), (4, 0),
+                                         (32, 0), (4, 100)])
+def test_binned_kernel_matches_plain_on_card(cuda_device, tpr, hub_cap, block):
+    A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_binned(A, {"threads_per_row": tpr, "hub_cap": hub_cap,
+                          "block_size": block})
+    a = fn.planned_arrays
+    x = _x(A.num_cols, cuda_device)
+    before = binned_spmv.launches
+    y = fn(x)
+    torch.cuda.synchronize()
+    assert binned_spmv.launches - before == 1
+    yp = binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"], a["bins"],
+                           x, A.num_rows)
+    torch.testing.assert_close(y, yp, **TOL["rails"])
+
+
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("vpt", [1, 4, 8, 16])
+def test_coo_kernel_matches_plain_on_card(cuda_device, vpt, block):
+    """vpt 4 cuts the 4096-entry row over 32 chunks of 128 entries; every
+    partial of it must reach y through the carry fold."""
+    A = from_scipy(_rails_matrix(), "coo", dtype=torch.float32, device=cuda_device)
+    fn = build_colsort(A, {"values_per_thread": vpt, "block_size": block})
+    a = fn.planned_arrays
+    x = _x(A.num_cols, cuda_device)
+    before = coo_spmv.launches
+    y = fn(x)
+    torch.cuda.synchronize()
+    assert coo_spmv.launches - before == 1
+    yp = coo_spmv_plain(a["row"], a["col"], a["val"], x, A.num_rows)
+    torch.testing.assert_close(y, yp, **TOL["rails"])
+    torch.testing.assert_close(fn(x), y, rtol=0, atol=0)    # deterministic
+
+
+@pytest.mark.parametrize("impl", ["binned", "colsort"])
+@pytest.mark.parametrize("store", ["bfloat16", "float64"])
+def test_rails_other_storage_on_card(cuda_device, impl, store):
+    dtype = torch.float64 if store == "float64" else torch.float32
+    A = from_scipy(_rails_matrix(4), "csr", dtype=dtype, device=cuda_device)
+    cfg = {"impl": impl, "value_dtype": "bfloat16"} if store == "bfloat16" \
+        else {"impl": impl}
+    y = build_spmv(A, cfg)(_x(A.num_cols, cuda_device, dtype))
+    ref = reference_spmv(A, _x(A.num_cols, "cpu", dtype))
+    tol = 2e-2 if store == "bfloat16" else 1e-10
+    assert np.linalg.norm(y.cpu().numpy() - ref) / np.linalg.norm(ref) < tol
+
+
+@pytest.mark.parametrize("fmt", ["ell", "ellr", "hyb"])
+def test_cuda_impl_of_the_ell_family_on_card(cuda_device, fmt):
+    S = _rails_matrix(5) if fmt == "hyb" else \
+        gallery.poisson9pt(60, 50, device="cpu").to_scipy()   # ELL's fill guard
+    A = from_scipy(S, fmt, dtype=torch.float32, device=cuda_device)
+    before = csr_spmv.launches
+    y = build_spmv(A, {"impl": "cuda", "block_size": 128})(_x(A.num_cols, cuda_device))
+    assert csr_spmv.launches - before == 1
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               reference_spmv(A, _x(A.num_cols, "cpu")), **TOL["csr"])
+
+
+@pytest.mark.parametrize("block", [128, 512])
+def test_dia_and_csr_block_sizes_on_card(cuda_device, block):
+    for fmt, case in (("dia", _dia_case), ("csr", _csr_case)):
+        A = gallery.poisson5pt(130, 70, format=fmt, device=cuda_device)
+        y, yp, launches = case(A, {"block_size": block}, cuda_device)
+        assert launches == 1
+        torch.testing.assert_close(y, yp, **TOL[fmt])
+
+
+def test_stream_triad_on_card(cuda_device):
+    x = _x(1_000_003, cuda_device)
+    y = _x(1_000_003, cuda_device, seed=4)
+    want = calibrate.stream_triad_plain(x.cpu(), y.cpu())
+    before = calibrate.stream_triad.launches
+    calibrate.stream_triad(x, y)
+    assert calibrate.stream_triad.launches - before == 1
+    torch.testing.assert_close(y.cpu(), want, rtol=0, atol=0)
+    gbps = calibrate.stream_gbps(cuda_device, nbytes=256 << 20, reps=5)
+    assert np.isfinite(gbps) and gbps > 0
+
+
+def test_small_walk_on_card(cuda_device):
+    """Every configuration of a small walk on the card is Ok or skippable,
+    and the kernels' configurations validate."""
+    A = from_scipy(_rails_matrix(6), "csr", dtype=torch.float32, device=cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    results = Tuner(warmup=1, repeats=2).tune(A, x, reference_computation=reference_spmv)
+    skippable = {ResultStatus.DeviceLimitsExceeded, ResultStatus.CompilationFailed}
+    for r in results:
+        assert r.status == ResultStatus.Ok or r.status in skippable, \
+            f"{r.configuration}: {r.status} {r.error}"
+    ok = {r.configuration["impl"] for r in results if r.is_valid()}
+    assert {"cuda", "binned", "colsort", "segsum"} <= ok

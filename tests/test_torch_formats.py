@@ -35,7 +35,7 @@ def _assert_same_container(P, J):
 @pytest.mark.parametrize("fmt", ["coo", "csr", "dia"])
 @pytest.mark.parametrize("stencil", ["poisson5pt", "poisson9pt"])
 def test_gallery_arrays_equal(stencil, fmt):
-    P = getattr(gallery, stencil)(37, 41, format=fmt)
+    P = getattr(gallery, stencil)(37, 41, format=fmt, device="cpu")
     J = getattr(jgallery, stencil)(37, 41, format=fmt, dtype=np.float32)
     assert P.dtype == torch.float32
     _assert_same_container(P, J)
@@ -45,7 +45,7 @@ def test_gallery_arrays_equal(stencil, fmt):
                                      ("coo", "dia"), ("dia", "coo"),
                                      ("csr", "coo"), ("coo", "csr")])
 def test_convert_equal(src, dst):
-    P = convert(gallery.poisson5pt(37, 41, format=src), dst)
+    P = convert(gallery.poisson5pt(37, 41, format=src, device="cpu"), dst)
     J = jct.convert(jgallery.poisson5pt(37, 41, format=src, dtype=np.float32), dst)
     _assert_same_container(P, J)
 
@@ -61,7 +61,7 @@ def test_dia_fill_guard_raises_in_both():
     n = 2000                                       # ~1300 diagonals x 2000 rows
     row, col, val = _scattered_triplets(n, 4)
     with pytest.raises(FormatConversionException):
-        convert(coo_matrix(row, col, val, (n, n)), "dia")
+        convert(coo_matrix(row, col, val, (n, n), device="cpu"), "dia")
     with pytest.raises(JaxFormatConversionException):
         jct.convert(jax_coo_matrix(row, col, val, (n, n)), "dia")
 
@@ -69,7 +69,8 @@ def test_dia_fill_guard_raises_in_both():
 def test_dia_fill_guard_dont_throw_equal():
     n = 2000
     row, col, val = _scattered_triplets(n, 4)
-    P = convert(coo_matrix(row, col, val, (n, n)), "dia", dont_throw=True)
+    P = convert(coo_matrix(row, col, val, (n, n), device="cpu"), "dia",
+                dont_throw=True)
     J = jct.convert(jax_coo_matrix(row, col, val, (n, n)), "dia", dont_throw=True)
     _assert_same_container(P, J)
 
@@ -81,11 +82,11 @@ def test_interop_round_trip(fmt):
     _assert_same_container(P, J)
     # and back: both oracles see one matrix
     np.testing.assert_array_equal(to_scipy(P).toarray(), jax_to_scipy(J).toarray())
-    _assert_same_container(from_scipy(to_scipy(P), fmt), J)
+    _assert_same_container(from_scipy(to_scipy(P), fmt, device="cpu"), J)
 
 
 def test_to_device_moves_every_tensor():
-    A = gallery.poisson5pt(5, 4, format="csr")
+    A = gallery.poisson5pt(5, 4, format="csr", device="cpu")
     M = A.to("meta")
     assert {t.device.type for t in (M.indptr, M.col, M.val, M.row)} == {"meta"}
     assert M.shape == A.shape and M.nnz == A.nnz

@@ -93,7 +93,7 @@ def test_csr_plain_matches_pallas(name, fmt):
 
 @pytest.mark.parametrize("fmt", ["dia", "csr", "coo"])
 def test_cuda_impl_rejects_2d_x(fmt):
-    A = gallery.poisson5pt(6, 5, format=fmt)
+    A = gallery.poisson5pt(6, 5, format=fmt, device="cpu")
     fn = build_spmv(A, {"impl": "cuda"})
     with pytest.raises(NotImplementedException):
         fn(torch.ones(A.num_cols, 2))
@@ -103,7 +103,7 @@ def test_cuda_impl_rejects_2d_x(fmt):
 def test_wrapper_raises_off_the_cpu_instead_of_falling_back(fmt):
     """Tensors that are not all on the CPU must reach the kernel or raise;
     a meta tensor is neither CPU nor CUDA."""
-    A = gallery.poisson5pt(6, 5, format=fmt)
+    A = gallery.poisson5pt(6, 5, format=fmt, device="cpu")
     fn = build_spmv(A, {"impl": "cuda"})
     with pytest.raises(InvalidInputException):
         fn(torch.ones(A.num_cols, device="meta"))
@@ -112,5 +112,5 @@ def test_wrapper_raises_off_the_cpu_instead_of_falling_back(fmt):
 @pytest.mark.parametrize("fmt,plain", [("dia", "slices"), ("csr", "segsum"),
                                        ("coo", "segsum")])
 def test_default_config_on_cpu_is_the_plain_path(fmt, plain):
-    A = gallery.poisson5pt(6, 5, format=fmt)
+    A = gallery.poisson5pt(6, 5, format=fmt, device="cpu")
     assert default_config(A)["impl"] == plain

@@ -7,12 +7,17 @@ import scipy.sparse as sp
 from cusp_autotuned_tpu_torch import interop
 
 FIELDS = {"coo": ("row", "col", "val"), "csr": ("indptr", "col", "val", "row"),
-          "dia": ("data",)}
+          "dia": ("data",), "ell": ("col", "val"),
+          "ellr": ("col", "val", "row_lengths")}
 
 
 def port_of(A, device="cpu"):
     """The port's container holding the arrays of the JAX container A."""
-    arrays = {f: np.asarray(getattr(A, f)) for f in FIELDS[A.format]}
+    if A.format == "hyb":
+        arrays = {f"{part}_{f}": np.asarray(getattr(getattr(A, part), f))
+                  for part in ("ell", "coo") for f in FIELDS[part]}
+    else:
+        arrays = {f: np.asarray(getattr(A, f)) for f in FIELDS[A.format]}
     return interop.from_reference(A.format, arrays, A.shape, A.nnz,
                                   offsets=getattr(A, "offsets", None),
                                   device=device)
