@@ -12,7 +12,8 @@ before it and read just after:
   autotune  the tuner's path: calibrate() (the stream triad and the
             gather/segment-sum probes), the exhaustive validated walk
             (tune) on poisson5pt 1000x1000 CSR and on a skewed 1M-row CSR,
-            the cg.cu solve through tuned_operator, the dynamic multiply
+            the cg.cu solve through tuned_operator (timed in turns with the
+            via_dia solve), the dynamic multiply
             hook on a 65,536-row diagonal matrix, and choose_format over
             dia, ell, ellr, csr, coo and hyb.
 
@@ -436,14 +437,24 @@ def cg_phase(device, A):
     (ik, ck, rk), (ip, cp, rp) = out["cuda"], out["slices"]
     if not (ck and cp and abs(ik - ip) <= 2 and rk < 1e-2 and rp < 1e-2):
         raise RuntimeError("cg: 100x100 kernel and plain solves disagree")
-    return launches, b, its, solve_s
+    return launches, b, its
+
+
+def check_statuses(where, results):
+    """Raise unless every result is Ok or a refused conversion."""
+    from cusp_autotuned_tpu_torch.autotune import ResultStatus
+    for r in results:
+        if r.status not in (ResultStatus.Ok, ResultStatus.DeviceLimitsExceeded):
+            raise RuntimeError(f"autotune: {r.configuration} on {where}: "
+                               f"{r.status.value} {r.error}")
 
 
 def walk(name, A, x):
-    """tune() over the whole space with validation against the oracle;
-    every result must be Ok or skippable."""
+    """tune() over the whole space with validation against the oracle.
+    Every result must be Ok or a refused conversion: every plan takes the
+    walk's 1-D x, so CompilationFailed on the card is a fault, and a kernel
+    that does not build or launch raises out of tune()."""
     from cusp_autotuned_tpu_torch import autotune
-    from cusp_autotuned_tpu_torch.autotune import ResultStatus
     from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
     from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
 
@@ -451,14 +462,11 @@ def walk(name, A, x):
     results = autotune.tune(A, x, reference_computation=reference_spmv)
     log(f"autotune: tune({name}, {A.format}): {len(results)} configurations "
         f"in {time.perf_counter() - t0:.1f} s")
-    skippable = {ResultStatus.DeviceLimitsExceeded, ResultStatus.CompilationFailed}
     for r in results:
         log(f"    {r.status.value:20s} {r.duration_ms:9.4f} ms  "
             f"{json.dumps(r.configuration, sort_keys=True)}"
             + (f"  ({r.error[:80]})" if r.error else ""))
-        if not (r.is_valid() or r.status in skippable):
-            raise RuntimeError(f"autotune: {r.configuration} on {name}: "
-                               f"{r.status.value} {r.error}")
+    check_statuses(name, results)
     valid = {r.configuration["impl"] for r in results if r.is_valid()}
     if not {"binned", "colsort", "cuda"} <= valid:
         raise RuntimeError(f"autotune: {name}: binned, colsort and cuda must "
@@ -466,9 +474,8 @@ def walk(name, A, x):
     best = autotune.get_tuner().best_configuration(A, x)
     best_ms = min(r.duration_ms for r in results if r.is_valid())
     log(f"  winner: {best} at {best_ms:.4f} ms")
-    # the tuner's channel times whole calls, host work included; the
-    # profiler's device time of the leading configurations shows how much
-    # of their order is the host's
+    # the tuner's channel times graph replays, the device's time; the
+    # profiler's device time of the leading configurations checks it
     for r in sorted((r for r in results if r.is_valid()),
                     key=lambda r: r.duration_ms)[:4]:
         fn = build_spmv(A, r.configuration)
@@ -477,12 +484,13 @@ def walk(name, A, x):
     return best
 
 
-def autotune_phase(device, matrices, b, viadia_its, viadia_solve_s):
+def autotune_phase(device, matrices, b, viadia_its):
     from cusp_autotuned_tpu_torch import autotune, gallery
     from cusp_autotuned_tpu_torch.autotune import calibrate, configurations_for
     from cusp_autotuned_tpu_torch.autotune.tuner import matrix_signature
     from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
     from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
+    from cusp_autotuned_tpu_torch.operators import planned_operator
     from cusp_autotuned_tpu_torch.ops.convert import convert
     from cusp_autotuned_tpu_torch.ops.multiply import multiply
 
@@ -494,20 +502,29 @@ def autotune_phase(device, matrices, b, viadia_its, viadia_solve_s):
     for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
         walk(name, matrices[name], seeded_x(matrices[name].num_cols, 6, device))
 
-    op = autotune.tuned_operator(A)
-    solve(op, b)                                  # warm-up
-    x, mon, solve_s = solve(op, b)
-    its = mon.iteration_count()
+    # the tuned solve against the via_dia one in turns (via_dia, tuned,
+    # tuned, via_dia): the host's share of a CG iteration drifts within a
+    # call, so only solves taken side by side compare
+    ops = {"tuned": autotune.tuned_operator(A),
+           "via_dia": planned_operator(A, {"impl": "via_dia"})}
+    solve(ops["tuned"], b)                        # warm-up
+    per_it = {"tuned": [], "via_dia": []}
+    for name in ("via_dia", "tuned", "tuned", "via_dia"):
+        x, mon, solve_s = solve(ops[name], b)
+        its = mon.iteration_count()
+        per_it[name].append(1e3 * solve_s / max(its, 1))
+        if name != "tuned":
+            continue
+        tuned_its, tuned_rel = its, mon.residual_norm() / mon.b_norm
+        if not torch.isfinite(x).all() or abs(its - viadia_its) > 2:
+            raise RuntimeError(f"autotune: the tuned solve took {its} "
+                               f"iterations against via_dia's {viadia_its}")
     log(f"autotune: cg.cu through tuned_operator "
-        f"({autotune.get_tuner().best_configuration(A)}): {its} iterations, "
-        f"converged {mon.converged()}, "
-        f"relative residual {mon.residual_norm() / mon.b_norm:.3e}, solve "
-        f"{solve_s:.3f} s, {1e3 * solve_s / max(its, 1):.4f} ms/iteration; "
-        f"via_dia in this call: {viadia_its} iterations, "
-        f"{1e3 * viadia_solve_s / max(viadia_its, 1):.4f} ms/iteration")
-    if not torch.isfinite(x).all() or abs(its - viadia_its) > 2:
-        raise RuntimeError(f"autotune: the tuned solve took {its} iterations "
-                           f"against via_dia's {viadia_its}")
+        f"({autotune.get_tuner().best_configuration(A)}): {tuned_its} "
+        f"iterations (via_dia {viadia_its}), relative residual "
+        f"{tuned_rel:.3e}; ms/iteration in turns: "
+        + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                    for k, v in per_it.items()))
 
     D = gallery.make_diagonal_symmetric_matrix(65536, 65536, 64, 7, device=device)
     xd = seeded_x(D.num_cols, 7, device)
@@ -522,7 +539,9 @@ def autotune_phase(device, matrices, b, viadia_its, viadia_solve_s):
                                    f"oracle by {np.abs(y - expect).max():.3e}")
     finally:
         autotune.disable()
-    recorded = len(autotune.get_tuner().results[matrix_signature(D)])
+    hooked = autotune.get_tuner().results[matrix_signature(D)]
+    check_statuses("the multiply hook", hooked.values())
+    recorded = len(hooked)
     log(f"autotune: multiply hook on make_diagonal_symmetric_matrix(65536, "
         f"65536, 64, 7): {space + 3} calls checked against the oracle, "
         f"{recorded} results for a space of {space}")
@@ -535,9 +554,10 @@ def autotune_phase(device, matrices, b, viadia_its, viadia_solve_s):
                                     reference_computation=reference_spmv)
     tuner = autotune.get_tuner()
     for fmt in FORMATS:
-        ok = [r for r in tuner.results.get(
-            matrix_signature(convert(A, fmt), xc), {}).values() if r.is_valid()]
-        best = min(ok, key=lambda r: r.duration_ms)
+        results = tuner.results[matrix_signature(convert(A, fmt), xc)].values()
+        check_statuses(f"choose_format's {fmt}", results)
+        best = min((r for r in results if r.is_valid()),
+                   key=lambda r: r.duration_ms)
         log(f"    {fmt:5s} best {best.duration_ms:.4f} ms {best.configuration}")
     y = build_spmv(B, cfg)(xc).cpu().numpy()
     ref = reference_spmv(A, xc)
@@ -583,10 +603,9 @@ def main():
     for name in ("uniform random 1M x 1M", "power-law 1M rows"):
         del matrices[name]
 
-    cg_launches, b, viadia_its, viadia_solve_s = cg_phase(
+    cg_launches, b, viadia_its = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
-    tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its,
-                                       viadia_solve_s)
+    tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its)
     log(f"launches: cg.cu path {cg_launches}; autotune path {tuned_launches}")
     missing = [k for k in KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1]

@@ -7,6 +7,8 @@ NotImplementedException, which the tuner records as a skippable status."""
 
 from __future__ import annotations
 
+from cusp_autotuned_tpu_torch.kernels.binned import build_binned  # noqa: F401
+from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort  # noqa: F401
 from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
 
@@ -20,13 +22,3 @@ def build(format_name, A, config):
         return build_csr(A, config)
     raise NotImplementedException(
         f"cuda kernel for {format_name} not yet available")
-
-
-def build_binned(A, config):
-    from cusp_autotuned_tpu_torch.kernels.binned import build_binned as bb
-    return bb(A, config)
-
-
-def build_colsort(A, config):
-    from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort as bc
-    return bc(A, config)

@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from cusp_autotuned_tpu_torch.autotune.space import TuningSpace
+from cusp_autotuned_tpu_torch.kernels.binned import build_binned
+from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort
 from cusp_autotuned_tpu_torch.utils.config import get_config, plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, NotImplementedException,
@@ -87,16 +89,6 @@ def _build_cuda(format_name):
     return build
 
 
-def _build_binned(A, config):
-    from cusp_autotuned_tpu_torch.kernels import pallas_spmv
-    return pallas_spmv.build_binned(A, config)
-
-
-def _build_colsort(A, config):
-    from cusp_autotuned_tpu_torch.kernels import pallas_spmv
-    return pallas_spmv.build_colsort(A, config)
-
-
 def _inner_dia_impl(config, D):
     """Inner DIA impl for via_dia: an explicit dia_impl wins; otherwise the
     kernel for a matrix on a CUDA device, the plain slices on the CPU."""
@@ -138,7 +130,7 @@ def _build_via_dense(A, config):
 
 
 _MOVES = {"via_dia": _build_via_dia, "via_dense": _build_via_dense,
-          "binned": _build_binned, "colsort": _build_colsort}
+          "binned": build_binned, "colsort": build_colsort}
 
 VARIANTS: Dict[str, Dict[str, Callable]] = {
     "dia": {"slices": _build_dia_slices, "gather": _build_dia_gather,
@@ -169,7 +161,8 @@ _SPACE_IMPLS = {
     "hyb": ("default", "via_dia", "cuda", "binned"),
 }
 BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
-THREADS_PER_ROW = (0, 1, 4, 32)           # binned: 0 = binned by length
+# binned: 0 = binned by length; a warp a row (32) is the `cuda` impl
+THREADS_PER_ROW = (0, 1, 4)
 VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
 
 
@@ -187,8 +180,9 @@ def tuning_space(A) -> TuningSpace:
     """The constrained tuning space of a matrix's format.  `impl` is the
     kernel strategy, including the format-selection moves; `dia_impl` the
     inner DIA impl of via_dia; `block_size` the threads per block of every
-    CUDA launch; `threads_per_row` binned's lanes per row;
-    `values_per_thread` colsort's chunk.  Constraints pin each axis to 0 or
+    CUDA launch; `threads_per_row` binned's lanes per row (not 32: a warp a
+    row is csrc/csr_spmv.cu, the `cuda` impl); `values_per_thread`
+    colsort's chunk.  Constraints pin each axis to 0 or
     'none' where it does not apply, as the fork pins PREFETCH_TYPE.  The
     opt-in `value_dtype` axis (CUSP_TORCH_TUNE_BF16) adds bf16 storage to
     the DIA kernels."""

@@ -37,7 +37,7 @@ from cusp_autotuned_tpu_torch.ops.convert import convert
 from cusp_autotuned_tpu_torch.ops.multiply import multiply
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 from cusp_autotuned_tpu_torch.utils.exceptions import (
-    InvalidInputException, NotImplementedException,
+    FormatConversionException, InvalidInputException, NotImplementedException,
 )
 
 from tests.torch_parity import port_of
@@ -115,10 +115,11 @@ def test_space_sizes_and_axes():
     A = gallery.poisson5pt(8, 8, format="csr", device="cpu")
     sizes = {f: len(configurations_for(convert(A, f)))
              for f in ("dia", "csr", "coo", "ell", "ellr", "hyb")}
-    assert sizes == {"dia": 5, "csr": 30, "coo": 30, "ell": 30, "ellr": 30,
-                     "hyb": 20}
+    assert sizes == {"dia": 5, "csr": 27, "coo": 27, "ell": 27, "ellr": 27,
+                     "hyb": 17}
     for cfg in configurations_for(A):
         assert (cfg["threads_per_row"] == 0) or cfg["impl"] == "binned"
+        assert cfg["threads_per_row"] != 32      # a warp a row is `cuda`
         assert (cfg["values_per_thread"] > 0) == (cfg["impl"] == "colsort")
         assert (cfg["block_size"] > 0) == (
             cfg["impl"] in ("cuda", "binned", "colsort") or cfg["dia_impl"] == "cuda")
@@ -210,6 +211,29 @@ def test_statuses_match_jax(case):
                    else ResultStatus.DeviceLimitsExceeded)
 
 
+@pytest.mark.parametrize("error,status", [
+    (FormatConversionException, ResultStatus.DeviceLimitsExceeded),
+    (NotImplementedException, ResultStatus.CompilationFailed),
+    (RuntimeError, None),
+], ids=["refused-conversion", "not-implemented", "kernel-failure"])
+def test_only_unplannable_configurations_are_results(monkeypatch, error, status):
+    """A plan the port refuses is a skippable result; any other failure,
+    such as a kernel that does not build or launch, stops the walk."""
+    A = gallery.poisson5pt(8, 8, format="dia", device="cpu")
+
+    def failing(A, config):
+        raise error("cusp_dia_spmv launch failed")
+
+    monkeypatch.setitem(variants.VARIANTS["dia"], "gather", failing)
+    tuner = Tuner(measure=False)
+    if status is None:
+        with pytest.raises(error, match="launch failed"):
+            tuner.tune(A, torch.ones(64), reference_computation=reference_spmv)
+        return
+    results = tuner.tune(A, torch.ones(64), reference_computation=reference_spmv)
+    assert {r.configuration["impl"]: r.status for r in results}["gather"] == status
+
+
 def test_dynamic_tune_iteration_mode(global_tuner):
     """enable() + repeated multiply walks the space one configuration per
     call, then settles on the best (parity: ktt.h:35-43)."""
@@ -277,6 +301,21 @@ def test_signature_separates_same_shaped_matrices():
     np.testing.assert_allclose(y2.numpy(), 2 * y1.numpy(), rtol=1e-6)
 
 
+def test_signature_follows_in_place_edits(global_tuner):
+    """An in-place edit of a container's tensor gives it a new signature,
+    so the hook does not serve a plan that copied the old values."""
+    A = gallery.poisson5pt(9, 9, format="csr", device="cpu")
+    x = torch.linspace(0, 1, 81)
+    config = {"impl": "via_dia", "dia_impl": "slices"}
+    sig = matrix_signature(A)
+    y1 = autotune.multiply(A, x, configuration=config)
+    A.val.mul_(2.0)
+    assert matrix_signature(A) != sig
+    y2 = autotune.multiply(A, x, configuration=config)
+    np.testing.assert_allclose(y2.numpy(), 2 * y1.numpy(), rtol=1e-6)
+    assert matrix_signature(A) == matrix_signature(A)
+
+
 def test_reset_searchers_and_stop_conditions():
     A = gallery.poisson5pt(8, 8, format="dia", device="cpu")
     x = torch.ones(64)
@@ -312,7 +351,7 @@ def test_tuned_operator_cg_matches_jax_iterations(global_tuner):
     b = np.random.RandomState(0).rand(J.num_rows).astype(np.float32)
     _, mj = jsolvers.cg(J, jnp.asarray(b), monitor=JaxMonitor(jnp.asarray(b), 2000, 1e-5))
     op = autotune.tuned_operator(port_of(J), tune_first=True)
-    assert len(global_tuner.results[matrix_signature(port_of(J))]) == 30
+    assert len(global_tuner.results[matrix_signature(port_of(J))]) == 27
     bt = torch.from_numpy(b)
     _, mp = solvers.cg(op, bt, monitor=Monitor(bt, 2000, 1e-5))
     assert mp.iteration_count() == mj.iteration_count() == 73

@@ -10,6 +10,8 @@ a GPU machine without them:
 the reference's own for its DIA, CSR and lane-binned kernels
 (tests/test_pallas.py:22, :97 and :161)."""
 
+import time
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -256,14 +258,31 @@ def test_stream_triad_on_card(cuda_device):
 
 
 def test_small_walk_on_card(cuda_device):
-    """Every configuration of a small walk on the card is Ok or skippable,
-    and the kernels' configurations validate."""
+    """Every configuration of a small walk on the card is Ok or a refused
+    conversion (every plan takes a 1-D x here, so CompilationFailed would
+    be a fault), with a positive device time, and the kernels'
+    configurations validate."""
     A = from_scipy(_rails_matrix(6), "csr", dtype=torch.float32, device=cuda_device)
     x = _x(A.num_cols, cuda_device)
     results = Tuner(warmup=1, repeats=2).tune(A, x, reference_computation=reference_spmv)
-    skippable = {ResultStatus.DeviceLimitsExceeded, ResultStatus.CompilationFailed}
     for r in results:
-        assert r.status == ResultStatus.Ok or r.status in skippable, \
+        assert r.status in (ResultStatus.Ok, ResultStatus.DeviceLimitsExceeded), \
             f"{r.configuration}: {r.status} {r.error}"
+        assert not r.is_valid() or 0 < r.duration_ms < 1e3
     ok = {r.configuration["impl"] for r in results if r.is_valid()}
     assert {"cuda", "binned", "colsort", "segsum"} <= ok
+
+
+def test_tuner_times_the_device_not_the_host(cuda_device):
+    """The card's channel replays the calls from a CUDA graph, so a call's
+    host work (here 2 ms of sleep around the kernel) is not in its time."""
+    A = gallery.poisson5pt(64, 64, format="dia", device=cuda_device)
+    fn = build_dia(A, {})
+    x = _x(A.num_cols, cuda_device)
+
+    def slow_host(x):
+        time.sleep(0.002)
+        return fn(x)
+
+    ms = Tuner(warmup=1, repeats=4)._time(slow_host, x)
+    assert 0 < ms < 0.5
