@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Two main paths, each driven with every kernel's launch count set to 0 just
-before it and read just after:
+Three main paths, each driven with every kernel's launch count set to 0
+just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
             (1,000,000 unknowns), a via_dia planned operator, CG under a
@@ -15,7 +15,14 @@ before it and read just after:
             the cg.cu solve through tuned_operator (timed in turns with the
             via_dia solve), the dynamic multiply
             hook on a 65,536-row diagonal matrix, and choose_format over
-            dia, ell, ellr, csr, coo and hyb.
+            dia, ell, ellr, csr, coo and hyb;
+  spmm      the block multiply: the tuner's walk on poisson5pt 1000x1000
+            CSR with a seeded X (1,000,000 x 16) under its per-k signature,
+            tuned_operator(A, X) applied to X, the multiply hook on an
+            Array2d of X, the walk and tuned_operator on the skewed 1M-row
+            matrix at k = 16, eigen.lobpcg (100 iterations) on the operator
+            tuned for a (n, 3) block, and a 100x100 LOBPCG against the
+            analytic eigenvalue and against the plain operator.
 
 Phases:
 
@@ -32,16 +39,26 @@ Phases:
                their plain versions on four matrices: poisson5pt 1000x1000,
                the skewed 1M-row matrix, a uniform random 1M x 1M matrix
                (~8 entries a row) and a power-law 1M-row matrix
+  dia_spmm     the DIA SpMM kernel against its plain version: poisson5pt
+               1000x1000 at k = 3, 16 and 128 in f32 and bf16 storage, and
+               the JAX package's DIA SpMM test shapes
+  binned_spmm, coo_spmm
+               the row-binned and COO SpMM kernels against their plain
+               versions at k = 16 on the four matrices above, and on the JAX
+               package's SpMM test shapes
   cg           the cg.cu path; then a 100x100 solve through the kernel
                operator against one through the plain operator
   autotune     the autotune path
+  spmm         the spmm path
 
-Every SpMV line gives the kernel's time per call (CUDA events over
-back-to-back calls) and device time (torch.profiler), its useful GB/s and
+Every SpMV and SpMM line gives the kernel's time per call (CUDA events
+over back-to-back calls) and device time (torch.profiler, every kernel of
+the call: the COO wrappers launch two), its useful GB/s and
 their share of the triad's rate, the bound (useful bytes over the triad's
 rate), the plain version's times and, where one PyTorch call computes the
 same product, that call's time (cuSPARSE through torch.sparse_csr_tensor,
-timed as a yardstick only; the port never calls it).  Any failed check
+times a vector or the dense block, timed as a yardstick only; the port
+never calls it).  Any failed check
 raises, and the script exits non-zero.  It exits non-zero at once where
 torch sees no CUDA device.  Its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
@@ -56,7 +73,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 DIA_RTOL, DIA_ATOL = 1e-5, 1e-4      # tests/test_pallas.py:22
 CSR_RTOL, CSR_ATOL = 1e-4, 1e-4      # tests/test_pallas.py:97
@@ -64,21 +81,27 @@ RAIL_RTOL, RAIL_ATOL = 1e-4, 1e-4    # tests/test_pallas.py:161
 SAMPLES, PER_SAMPLE = 25, 20         # timed samples per version and turn,
                                      # back-to-back launches per sample
 RAIL_SAMPLES = 8                     # the 1M-row rail lines take fewer
+SPMM_SAMPLES, SPMM_PER_SAMPLE = 3, 5  # and the SpMM lines fewer still: a
+                                      # plain SpMM at 1M rows takes ~10-100 ms
 # the least time of a function on an H100 SXM (data sheet, 700 W): its
 # bytes over the memory rate or its f32 operations over the f32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 FORMATS = ("dia", "ell", "ellr", "csr", "coo", "hyb")
-KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv", "stream_triad")
+SPMV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
+                "stream_triad")
+SPMM_KERNELS = ("dia_spmm", "binned_spmm", "coo_spmm")
+KERNELS = SPMV_KERNELS + SPMM_KERNELS
+EARLIER_VIA_DIA_MS = "0.36-0.70"     # PERF.md §5, H100 80GB HBM3, 700 W
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def median_ms(fn, samples=SAMPLES):
+def median_ms(fn, samples=SAMPLES, per_sample=PER_SAMPLE):
     """Median over `samples` of the per-launch CUDA-event time of
-    PER_SAMPLE back-to-back launches, after a warm-up.  Events around a
+    `per_sample` back-to-back launches, after a warm-up.  Events around a
     single launch would also count the host's launch gap while the device
     waits."""
     for _ in range(3):
@@ -89,26 +112,64 @@ def median_ms(fn, samples=SAMPLES):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(PER_SAMPLE):
+        for _ in range(per_sample):
             fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop) / PER_SAMPLE)
+        times.append(start.elapsed_time(stop) / per_sample)
     return statistics.median(times)
 
 
-def device_ms(fn):
-    """Device time per call: the summed own time of the kernels that
-    torch.profiler records over PER_SAMPLE calls, over PER_SAMPLE.  Where a
-    call's host work outlasts its kernels, this is below median_ms."""
+def kernel_name(key):
+    """A profiler key's function name, without namespace, template and
+    arguments: 'void (anonymous namespace)::coo_spmm_fold_kernel<float>(...)'
+    -> 'coo_spmm_fold_kernel'."""
+    base = key.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
+    parts = base.replace("::", " ").split()
+    return parts[-1] if parts else key[:40]
+
+
+def device_kernels(fn, calls=PER_SAMPLE):
+    """{kernel name: (device ms per call, launches per call)} that
+    torch.profiler records over `calls` calls of fn.  A first step of
+    `calls` calls warms the tracer up and is dropped: without it the
+    profiler lost up to all launches of the first calls (PERF.md §7)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PER_SAMPLE):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / PER_SAMPLE
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in prof.key_averages():
+        # ProfilerStep# is the schedule's own annotation, not a kernel
+        if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep"):
+            name = kernel_name(e.key)
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + e.self_device_time_total / 1e3 / calls,
+                         n + e.count / calls)
+    return out
+
+
+def device_ms(fn, calls=PER_SAMPLE, once_each=False):
+    """(device ms per call, the least share of a kernel's launches that
+    the profiler recorded).  The time sums every kernel of the call (the
+    fill, chunk and fold kernels of a COO call).  The profiler drops some
+    launches' records (PERF.md §7), so for fn that launches each of its
+    kernels once a call (a kernel wrapper: once_each) the time is the sum of
+    each kernel's mean over its recorded launches; otherwise it is the
+    recorded time over `calls`, a lower bound where records were dropped.
+    Where a call's host work outlasts its kernels, this is below
+    median_ms."""
+    kernels = device_kernels(fn, calls)
+    if not kernels:
+        return 0.0, 0.0
+    seen = min(n for _, n in kernels.values())
+    if once_each:
+        return sum(ms / n for ms, n in kernels.values()), seen
+    return sum(ms for ms, _ in kernels.values()), seen
 
 
 def bound(nbytes, flops):
@@ -120,7 +181,7 @@ def bound(nbytes, flops):
 
 
 def compare(name, kernel, plain, rtol, atol, useful_bytes, flops, triad_gbps,
-            library=None, samples=SAMPLES, scale=None):
+            library=None, samples=SAMPLES, scale=None, per_sample=PER_SAMPLE):
     """Check kernel() against plain(), time both in turns (plain, kernel,
     kernel, plain), and library() beside them.  Returns the line's numbers.
     The check is |y - y_plain| <= atol + rtol * scale, where scale is
@@ -136,20 +197,26 @@ def compare(name, kernel, plain, rtol, atol, useful_bytes, flops, triad_gbps,
     if not bool((diff <= bar).all()):
         raise RuntimeError(f"{name}: kernel differs from plain version, "
                            f"max abs err {err:.3e} (rtol {rtol}, atol {atol})")
-    p1, k1, k2, p2 = (median_ms(f, samples) for f in (plain, kernel, kernel, plain))
+    p1, k1, k2, p2 = (median_ms(f, samples, per_sample)
+                      for f in (plain, kernel, kernel, plain))
     ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
-    library_ms = median_ms(library, samples) if library is not None else None
+    library_ms = (median_ms(library, samples, per_sample) if library is not None
+                  else None)
 
-    def device(fn):
-        t = device_ms(fn)
-        return f"{t:.4f} ms device" if t > 0 else "device time not measured"
+    def device(fn, once_each):
+        t, seen = device_ms(fn, per_sample, once_each)
+        if t <= 0:
+            return "device time not measured"
+        return f"{t:.4f} ms device" + (
+            f" (profiler recorded x{seen:.2f} of a kernel's launches)"
+            if once_each and seen < 1 else "")
 
     gbps = useful_bytes / ms / 1e6
     log(f"  {name}: max_abs_err {err:.3e}; kernel {ms:.4f} ms/call, "
-        f"{device(kernel)}, {gbps:.1f} GB/s useful = "
+        f"{device(kernel, True)}, {gbps:.1f} GB/s useful = "
         f"{100 * gbps / triad_gbps:.1f} % of the triad, bound "
         f"{useful_bytes / triad_gbps / 1e6:.4f} ms; plain {plain_ms:.4f} "
-        f"ms/call, {device(plain)}"
+        f"ms/call, {device(plain, False)}"
         + (f"; library {library_ms:.4f} ms/call" if library is not None else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": useful_bytes, "flops": flops}
@@ -160,13 +227,19 @@ def seeded_x(n, seed, device):
     return torch.from_numpy(x).to(device)
 
 
-def library_spmv(A, x):
-    """One PyTorch call computing the same product: CSR times a vector
-    through cuSPARSE, as a yardstick."""
+def sparse_csr(A):
+    """A as a torch.sparse_csr_tensor with f32 values, for the yardstick."""
     from cusp_autotuned_tpu_torch.ops.convert import convert
     C = convert(A, "csr")
-    S = torch.sparse_csr_tensor(C.indptr, C.col[:C.nnz], C.val[:C.nnz].float(),
-                                size=C.shape)
+    return torch.sparse_csr_tensor(C.indptr, C.col[:C.nnz], C.val[:C.nnz].float(),
+                                   size=C.shape)
+
+
+def library_spmv(A, x, S=None):
+    """One PyTorch call computing the same product: CSR times a vector or a
+    dense block through cuSPARSE, as a yardstick.  S: A's sparse_csr, where
+    it is built already."""
+    S = sparse_csr(A) if S is None else S
     return lambda: S @ x
 
 
@@ -229,7 +302,7 @@ def dia_phase(device, triad_gbps):
             name, lambda: fn(x),
             lambda: dia_spmv_plain(data, A.offsets, x, A.shape),
             DIA_RTOL, DIA_ATOL, useful, 2 * A.num_diagonals * A.num_rows,
-            triad_gbps)
+            triad_gbps, library_spmv(A, x))
     return results["poisson5pt 1000x1000 f32"]
 
 
@@ -341,6 +414,115 @@ def rails_phase(device, triad_gbps, matrices):
     return {k: v["poisson5pt 1000x1000 f32"] for k, v in out.items()}
 
 
+def seeded_block(n, k, seed, device):
+    X = np.random.RandomState(seed).randn(n, k).astype(np.float32)
+    return torch.from_numpy(X).to(device)
+
+
+def dia_spmm_phase(device, triad_gbps):
+    from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    from cusp_autotuned_tpu_torch.kernels.dia import build_dia, dia_spmv_plain
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(1)
+
+    def banded(shape, offsets):
+        return from_scipy(sp.diags([rng.uniform(0.5, 2.0, shape[0]) for _ in offsets],
+                                   offsets, shape=shape),
+                          "dia", dtype=torch.float32, device=device)
+
+    big = gallery.poisson5pt(1000, 1000, format="dia", device=device)
+    big_csr = sparse_csr(big)
+    small = gallery.poisson5pt(40, 45, format="dia", device=device)
+    cases = [(f"poisson5pt 1000x1000 {store} k={k}", big, cfg, k)
+             for k in (3, 16, 128)
+             for store, cfg in (("f32", {}), ("bf16", {"value_dtype": "bfloat16"}))]
+    cases += [  # tests/test_pallas.py:376, :392, :1047
+        ("poisson5pt 40x45 k=100", small, {}, 100),
+        ("poisson5pt 40x45 k=130", small, {}, 130),
+        ("rect wide 300x520 k=80", banded((300, 520), [0, 150, 320]), {}, 80),
+        ("wide short 8x300 k=16", banded((8, 300), [0, 1]), {}, 16),
+        ("rect tall 520x300 k=5", banded((520, 300), [-220, 0]), {}, 5),
+    ]
+    log("dia_spmm: kernel vs plain on the card, atol 1e-4 plus rtol 1e-4 of "
+        "each (row, column)'s sum of |a_ij X_jc|; useful bytes = "
+        "ndiag*rows_padded*sizeof(store) + (n+m)*k*4.  X at k = 128 is 512 MB.")
+    results = {}
+    for name, A, cfg, k in cases:
+        fn = build_dia(A, cfg)
+        data = fn.planned_arrays["data"]
+        X = seeded_block(A.num_cols, k, 3, device)
+        useful = (A.num_diagonals * A.rows_padded * data.element_size()
+                  + (A.num_rows + A.num_cols) * k * 4)
+        scale = dia_spmv_plain(data.abs().double(), A.offsets, X.abs().double(),
+                               A.shape).float()
+        results[name] = compare(
+            name, lambda: fn(X),
+            lambda: dia_spmv_plain(data, A.offsets, X, A.shape),
+            RAIL_RTOL, RAIL_ATOL, useful, 2 * A.nnz * k, triad_gbps,
+            library_spmv(A, X, big_csr if A is big else None), SPMM_SAMPLES,
+            scale, SPMM_PER_SAMPLE)
+        del X, scale
+    return results["poisson5pt 1000x1000 f32 k=16"]
+
+
+def all_hub_csr(n, device):
+    """tests/test_pallas.py:489's matrix: 2-3 entries a row."""
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    import scipy.sparse as sp
+    S = (sp.eye(n) + sp.diags(np.full(n - 1, 2.0), 1)
+         + sp.diags(np.full(n - 1, 3.0), -1))
+    return from_scipy(S, "csr", dtype=torch.float32, device=device)
+
+
+def rails_spmm_phase(device, triad_gbps, matrices):
+    from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.kernels.binned import (
+        binned_spmv_plain, build_binned)
+    from cusp_autotuned_tpu_torch.kernels.colsort import (
+        build_colsort, coo_spmv_plain)
+
+    log("binned_spmm / coo_spmm: kernels vs plain on the card, atol 1e-4 plus "
+        "rtol 1e-4 of each (row, column)'s sum of |a_ij X_jc|; default plans; "
+        "useful bytes: binned nnz*(4+4) + (m+1)*4 + m*4 (perm) + (n+m)*k*4, "
+        "coo nnz*(4+4+4) + (n+m)*k*4")
+    cases = [(f"{name} k=16", A, {}, 16) for name, A in matrices.items()]
+    small = [  # tests/test_pallas.py:250, :281, :473, :489
+        ("poisson9pt 30x30", gallery.poisson9pt(30, 30, format="csr", device=device),
+         {}, (3, 16)),
+        ("power-law 500 rows hub_cap 8", powerlaw_csr(500, 5000, 4, device),
+         {"hub_cap": 8}, (5,)),
+        ("power-law 700 rows", powerlaw_csr(700, 7000, 14, device), {}, (3, 9)),
+        ("all-hub 400 rows hub_cap 1", all_hub_csr(400, device), {"hub_cap": 1}, (3,)),
+    ]
+    cases += [(f"{name} k={k}", A, cfg, k) for name, A, cfg, ks in small for k in ks]
+    out = {"binned_spmm": {}, "coo_spmm": {}}
+    for name, A, cfg, k in cases:
+        X = seeded_block(A.num_cols, k, 5, device)
+        m, n, nnz = A.num_rows, A.num_cols, A.nnz
+        library = library_spmv(A, X)
+        fc = build_colsort(A, {})
+        c = fc.planned_arrays
+        scale = coo_spmv_plain(c["row"], c["col"], c["val"].abs().double(),
+                               X.abs().double(), m).float()
+        fb = build_binned(A, cfg)
+        a = fb.planned_arrays
+        out["binned_spmm"][name] = compare(
+            f"binned {name}", lambda: fb(X),
+            lambda: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
+                                      a["bins"], X, m),
+            RAIL_RTOL, RAIL_ATOL, nnz * 8 + (2 * m + 1) * 4 + (n + m) * k * 4,
+            2 * nnz * k, triad_gbps, library, SPMM_SAMPLES, scale, SPMM_PER_SAMPLE)
+        out["coo_spmm"][name] = compare(
+            f"coo {name}", lambda: fc(X),
+            lambda: coo_spmv_plain(c["row"], c["col"], c["val"], X, m),
+            RAIL_RTOL, RAIL_ATOL, nnz * 12 + (n + m) * k * 4, 2 * nnz * k,
+            triad_gbps, library, SPMM_SAMPLES, scale, SPMM_PER_SAMPLE)
+        del fb, fc, a, c, scale, X, library
+    return {k: v["poisson5pt 1000x1000 f32 k=16"] for k, v in out.items()}
+
+
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
@@ -348,13 +530,14 @@ def reset_counts():
 
 def counters():
     from cusp_autotuned_tpu_torch.autotune.calibrate import stream_triad
-    from cusp_autotuned_tpu_torch.kernels.binned import binned_spmv
-    from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmv
+    from cusp_autotuned_tpu_torch.kernels.binned import binned_spmm, binned_spmv
+    from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmm, coo_spmv
     from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv
-    from cusp_autotuned_tpu_torch.kernels.dia import dia_spmv
+    from cusp_autotuned_tpu_torch.kernels.dia import dia_spmm, dia_spmv
     return {"dia_spmv": dia_spmv, "csr_spmv": csr_spmv,
             "binned_spmv": binned_spmv, "coo_spmv": coo_spmv,
-            "stream_triad": stream_triad}
+            "stream_triad": stream_triad, "dia_spmm": dia_spmm,
+            "binned_spmm": binned_spmm, "coo_spmm": coo_spmm}
 
 
 def read_counts():
@@ -440,47 +623,71 @@ def cg_phase(device, A):
     return launches, b, its
 
 
-def check_statuses(where, results):
-    """Raise unless every result is Ok or a refused conversion."""
+def check_statuses(where, results, vector_only=()):
+    """Raise unless every result is Ok or a refused conversion, or, for an
+    impl in `vector_only` walked with a block x, CompilationFailed."""
     from cusp_autotuned_tpu_torch.autotune import ResultStatus
     for r in results:
-        if r.status not in (ResultStatus.Ok, ResultStatus.DeviceLimitsExceeded):
-            raise RuntimeError(f"autotune: {r.configuration} on {where}: "
-                               f"{r.status.value} {r.error}")
+        if r.status in (ResultStatus.Ok, ResultStatus.DeviceLimitsExceeded) or (
+                r.status == ResultStatus.CompilationFailed
+                and r.configuration.get("impl") in vector_only):
+            continue
+        raise RuntimeError(f"autotune: {r.configuration} on {where}: "
+                           f"{r.status.value} {r.error}")
 
 
-def walk(name, A, x):
+def label(config):
+    """An impl with the inner DIA impl of via_dia: 'via_dia/cuda'."""
+    impl = config["impl"]
+    return f"{impl}/{config['dia_impl']}" if impl == "via_dia" else impl
+
+
+def walk(name, A, x, need=("binned", "colsort", "cuda")):
     """tune() over the whole space with validation against the oracle.
-    Every result must be Ok or a refused conversion: every plan takes the
-    walk's 1-D x, so CompilationFailed on the card is a fault, and a kernel
-    that does not build or launch raises out of tune()."""
+    Every result must be Ok or a refused conversion: every plan but the CSR
+    kernel's takes a block x and every plan a vector, so CompilationFailed
+    on the card is a fault except for the csr `cuda` impl on a block (the
+    CSR kernel takes vectors only, as the JAX package's `pallas` impl).  A
+    kernel that does not build or launch raises out of tune().  Each impl
+    in `need` must validate.  The leaders' device times come with the
+    profiler's reading of each of their kernels."""
     from cusp_autotuned_tpu_torch import autotune
     from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
     from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
 
     t0 = time.perf_counter()
     results = autotune.tune(A, x, reference_computation=reference_spmv)
-    log(f"autotune: tune({name}, {A.format}): {len(results)} configurations "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"autotune: tune({name}, {A.format}, x {tuple(x.shape)}): "
+        f"{len(results)} configurations in {time.perf_counter() - t0:.1f} s")
     for r in results:
         log(f"    {r.status.value:20s} {r.duration_ms:9.4f} ms  "
             f"{json.dumps(r.configuration, sort_keys=True)}"
             + (f"  ({r.error[:80]})" if r.error else ""))
-    check_statuses(name, results)
-    valid = {r.configuration["impl"] for r in results if r.is_valid()}
-    if not {"binned", "colsort", "cuda"} <= valid:
-        raise RuntimeError(f"autotune: {name}: binned, colsort and cuda must "
-                           f"each validate; valid impls {sorted(valid)}")
+    check_statuses(name, results, ("cuda",) if x.dim() == 2 else ())
+    valid = {label(r.configuration) for r in results if r.is_valid()} | \
+        {r.configuration["impl"] for r in results if r.is_valid()}
+    if not set(need) <= valid:
+        raise RuntimeError(f"autotune: {name}: {need} must each validate; "
+                           f"valid impls {sorted(valid)}")
     best = autotune.get_tuner().best_configuration(A, x)
     best_ms = min(r.duration_ms for r in results if r.is_valid())
     log(f"  winner: {best} at {best_ms:.4f} ms")
     # the tuner's channel times graph replays, the device's time; the
-    # profiler's device time of the leading configurations checks it
+    # profiler's device time of the leading configurations checks it, and
+    # its per-kernel reading shows whether it saw every kernel of a call
     for r in sorted((r for r in results if r.is_valid()),
                     key=lambda r: r.duration_ms)[:4]:
         fn = build_spmv(A, r.configuration)
-        log(f"    leader {r.duration_ms:.4f} ms tuned, "
-            f"{device_ms(lambda: fn(x)):.4f} ms device: {r.configuration}")
+        kernels = device_kernels(lambda: fn(x))
+        # a kernel plan launches each of its kernels once a call: its mean
+        # over the recorded launches stands for every call
+        once = r.configuration["impl"] in ("cuda", "binned", "colsort") or \
+            r.configuration.get("dia_impl") == "cuda"
+        t = sum(ms / n if once else ms for ms, n in kernels.values())
+        device = (f"{t:.4f} ms device (" + ", ".join(
+            f"{k} {ms:.4f} ms x{n:g} recorded" for k, (ms, n) in kernels.items())
+            + ")") if kernels else "device time not measured (no launch recorded)"
+        log(f"    leader {r.duration_ms:.4f} ms tuned, {device}: {r.configuration}")
     return best
 
 
@@ -524,7 +731,8 @@ def autotune_phase(device, matrices, b, viadia_its):
         f"iterations (via_dia {viadia_its}), relative residual "
         f"{tuned_rel:.3e}; ms/iteration in turns: "
         + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
-                    for k, v in per_it.items()))
+                    for k, v in per_it.items())
+        + f" (earlier via_dia solves, PERF.md: {EARLIER_VIA_DIA_MS} ms/iteration)")
 
     D = gallery.make_diagonal_symmetric_matrix(65536, 65536, 64, 7, device=device)
     xd = seeded_x(D.num_cols, 7, device)
@@ -568,6 +776,139 @@ def autotune_phase(device, matrices, b, viadia_its):
     return read_counts(), consts
 
 
+def check_block(name, Y, plain, scale):
+    """Y against the plain product at the kernels' bar."""
+    torch.cuda.synchronize()
+    if Y.shape != plain.shape or not torch.isfinite(Y).all():
+        raise RuntimeError(f"spmm: {name}: output {tuple(Y.shape)} is not finite "
+                           f"or not of shape {tuple(plain.shape)}")
+    diff = (Y - plain).abs()
+    if not bool((diff <= RAIL_ATOL + RAIL_RTOL * scale).all()):
+        raise RuntimeError(f"spmm: {name} differs from the plain product by "
+                           f"{float(diff.max()):.3e}")
+    return float(diff.max())
+
+
+def lobpcg_bound(n):
+    """The largest eigenvalue of poisson5pt n x n: 4 + 4 cos(pi / (n + 1))."""
+    return 4 + 4 * np.cos(np.pi / (n + 1))
+
+
+def spmm_phase(device, matrices):
+    """The spmm path; returns the launch counts of its run."""
+    from cusp_autotuned_tpu_torch import autotune, eigen, gallery
+    from cusp_autotuned_tpu_torch.eigen.lobpcg import CHECK_EVERY
+    from cusp_autotuned_tpu_torch.formats import Array2d
+    from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv_plain
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    from cusp_autotuned_tpu_torch.ops.multiply import multiply
+
+    def plain_product(A, X):
+        Y = csr_spmv_plain(A.row, A.col, A.val, X, A.num_rows)
+        scale = csr_spmv_plain(A.row, A.col, A.val.abs().double(),
+                               X.abs().double(), A.num_rows).float()
+        return Y, scale
+
+    A = matrices["poisson5pt 1000x1000 f32"]
+    S = matrices["random 1M rows, skewed"]
+    X = seeded_block(A.num_cols, 16, 9, device)
+    XS = seeded_block(S.num_cols, 16, 10, device)
+    X3 = seeded_block(A.num_cols, 3, 11, device)
+    Y_plain, scale = plain_product(A, X)
+    YS_plain, scale_s = plain_product(S, XS)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+    walk("poisson5pt 1000x1000 f32", A, X, need=("binned", "colsort", "via_dia/cuda"))
+    op = autotune.tuned_operator(A, X)
+    err = check_block("tuned_operator(A, X)", op(X), Y_plain, scale)
+    best = autotune.get_tuner().best_configuration
+    log(f"spmm: tuned_operator(A, X) runs {best(A, X)}: max abs err {err:.3e} "
+        f"against the plain product")
+    autotune.enable()
+    try:
+        Y = multiply(A, Array2d.from_dense(X))
+    finally:
+        autotune.disable()
+    err = check_block("the multiply hook on an Array2d", Y, Y_plain, scale)
+    log(f"spmm: the multiply hook on Array2d {tuple(X.shape)}: max abs err "
+        f"{err:.3e}")
+    walk("random 1M rows, skewed", S, XS, need=("binned", "colsort"))
+    ops = autotune.tuned_operator(S, XS)
+    err = check_block("tuned_operator(skewed, X)", ops(XS), YS_plain, scale_s)
+    log(f"spmm: tuned_operator(skewed 1M, X) runs {best(S, XS)}: max abs err "
+        f"{err:.3e}")
+    del Y_plain, YS_plain, scale, scale_s, Y
+
+    # LOBPCG's block is (n, 3): the operator tuned for it
+    t0 = time.perf_counter()
+    op3 = autotune.tuned_operator(A, X3, tune_first=True)
+    log(f"spmm: tuned_operator(A, X3, tune_first=True) in "
+        f"{time.perf_counter() - t0:.1f} s: {best(A, X3)}")
+    eigen.lobpcg(op3, largest=True, maxiter=2)               # warm-up
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam, x, its = eigen.lobpcg(op3, largest=True, maxiter=100,
+                               return_iterations=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the steps masked after the stop, to the end of their block, launch too
+    steps = min(100, -(-its // CHECK_EVERY) * CHECK_EVERY)
+    per_step = {k: (v - before[k]) / steps for k, v in read_counts().items()
+                if v > before[k]}
+    lam, bound = float(lam), lobpcg_bound(1000)
+    log(f"spmm: lobpcg(poisson5pt 1000x1000, largest, maxiter 100): lambda "
+        f"{lam:.7f} (bound 4 + 4 cos(pi/1001) = {bound:.7f}), {its} "
+        f"iterations, {1e3 * wall / steps:.4f} ms/iteration; launches per "
+        f"iteration {per_step}")
+    # where an iteration's time goes: the device's kernels over 16 steps
+    # against the host's wall time of the same 16 steps
+    prof_steps = 16
+    t0 = time.perf_counter()
+    eigen.lobpcg(op3, largest=True, maxiter=prof_steps)
+    torch.cuda.synchronize()
+    wall16 = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(
+        lambda: eigen.lobpcg(op3, largest=True, maxiter=prof_steps), calls=1)
+    busy = sum(ms for ms, _ in kernels.values())    # a lower bound (§7)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"spmm: lobpcg, {prof_steps} steps: {wall16 / prof_steps:.4f} ms/iteration "
+        f"wall, {busy / prof_steps:.4f} ms/iteration device "
+        f"({100 * busy / wall16:.1f} % busy), "
+        f"{sum(n for _, n in kernels.values()) / prof_steps:.1f} kernels/iteration; "
+        f"top: " + ", ".join(f"{k} {ms / prof_steps:.4f} ms x{n / prof_steps:g}"
+                             for k, (ms, n) in top))
+    if x.shape != (A.num_rows,) or not torch.isfinite(x).all():
+        raise RuntimeError("spmm: lobpcg's vector is not finite or not of shape (n,)")
+    # the Rayleigh quotient never passes the largest eigenvalue; 7.99 is far
+    # below where 100 steps end (7.9986 at 300 x 300 in a CPU rehearsal)
+    if not 7.99 < lam <= bound * (1 + 1e-5):
+        raise RuntimeError(f"spmm: lobpcg's lambda {lam} is not in (7.99, {bound}]")
+
+    # a 100 x 100 solve to tol 1e-5: the analytic eigenvalue, and the same
+    # solve through the plain operator
+    B = gallery.poisson5pt(100, 100, format="csr", device=device)
+    XB = seeded_block(B.num_cols, 3, 12, device)
+    out = {}
+    for name, opb in (("tuned", autotune.tuned_operator(B, XB, tune_first=True)),
+                      ("plain", planned_operator(B, {"impl": "segsum"}))):
+        lam_b, _, its_b = eigen.lobpcg(opb, largest=True, maxiter=1000, tol=1e-5,
+                                       return_iterations=True)
+        out[name] = (float(lam_b), its_b)
+    exact = lobpcg_bound(100)
+    log(f"spmm: lobpcg(poisson5pt 100x100, tol 1e-5) (lambda, iterations): "
+        f"tuned {out['tuned']}, plain {out['plain']}, exact {exact:.7f}")
+    (lk, ik), (lp, ip) = out["tuned"], out["plain"]
+    if not (abs(lk - exact) <= 1e-4 * exact and abs(lp - exact) <= 1e-4 * exact
+            and ik < 1000 and ip < 1000):
+        raise RuntimeError("spmm: the 100x100 LOBPCG misses the analytic "
+                           "eigenvalue or does not converge")
+    launches = read_counts()
+    log(f"spmm: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch sees no CUDA device; the port's "
@@ -600,15 +941,20 @@ def main():
     log(f"matrices built in {time.perf_counter() - t0:.1f} s")
     records["csr_spmv"] = csr_phase(device, triad_gbps, matrices)
     records.update(rails_phase(device, triad_gbps, matrices))
+    records["dia_spmm"] = dia_spmm_phase(device, triad_gbps)
+    records.update(rails_spmm_phase(device, triad_gbps, matrices))
     for name in ("uniform random 1M x 1M", "power-law 1M rows"):
         del matrices[name]
 
     cg_launches, b, viadia_its = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
     tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its)
-    log(f"launches: cg.cu path {cg_launches}; autotune path {tuned_launches}")
-    missing = [k for k in KERNELS if tuned_launches[k] < 1] + \
-        [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1]
+    spmm_launches = spmm_phase(device, matrices)
+    log(f"launches: cg.cu path {cg_launches}; autotune path {tuned_launches}; "
+        f"spmm path {spmm_launches}")
+    missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
+        [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
+        [k for k in SPMM_KERNELS if spmm_launches[k] < 1]
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
@@ -620,6 +966,11 @@ def main():
         "coo_spmv": ("coo_spmv.cu", "cusp_autotuned_tpu/kernels/pallas_colsort.py:162"),
         "stream_triad": ("stream_triad.cu",
                          "cusp_autotuned_tpu/autotune/calibrate.py:322"),
+        "dia_spmm": ("dia_spmm.cu", "cusp_autotuned_tpu/kernels/pallas_dia.py:381"),
+        "binned_spmm": ("binned_spmm.cu",
+                        "cusp_autotuned_tpu/kernels/pallas_binned.py:229"),
+        "coo_spmm": ("coo_spmm.cu",
+                     "cusp_autotuned_tpu/kernels/pallas_colsort.py:885"),
     }
     kernels = []
     for name in KERNELS:
@@ -629,7 +980,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": cg_launches[name] + tuned_launches[name],
+            "launches": (cg_launches[name] + tuned_launches[name]
+                         + spmm_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

@@ -9,16 +9,19 @@ kernel that the reference wrote in Pallas for the TPU becomes a CUDA kernel
 under `csrc/`, built on first use (kernels/_build.py); beside each sits a
 plain PyTorch version, which the wrapper takes for CPU tensors.
 
-Ported so far (the cg.cu main path and the autotuner):
-  formats/   COO, CSR, DIA, ELL, ELLR, HYB
-  ops/       convert, multiply (with the autotune hook), BLAS-1 for CG
-  kernels/   DIA, CSR, row-binned CSR and nnz-balanced COO SpMV kernels,
+Ported so far (the cg.cu main path, the autotuner and the block multiply):
+  formats/   COO, CSR, DIA, ELL, ELLR, HYB, the dense Array2d
+  ops/       convert, multiply (vectors and dense blocks, with the autotune
+             hook), BLAS-1 for CG
+  kernels/   DIA, CSR, row-binned CSR and nnz-balanced COO SpMV kernels;
+             DIA, row-binned and COO SpMM kernels for dense blocks (n, k);
              the variant registry and the tuning spaces
   autotune/  the KTT-style tuner, tuned_operator, choose_format, and the
              stream-triad calibration
   gallery/   stencil generator, poisson5pt, poisson9pt, random, the fork's
              diagonal generators
   solvers/   Monitor, cg
+  eigen/     lobpcg, lanczos, arnoldi, gram_schmidt, spectral radius
   backend/   scipy oracle
   operators  Identity/Function/Planned operators
   interop    containers from the JAX package's arrays (tests)
@@ -30,7 +33,7 @@ the caller names another (utils.config.resolve_device).
 __version__ = "0.1.0"
 
 from cusp_autotuned_tpu_torch import (
-    autotune, backend, formats, gallery, kernels, ops, solvers, utils,
+    autotune, backend, eigen, formats, gallery, kernels, ops, solvers, utils,
 )
 from cusp_autotuned_tpu_torch.operators import (
     IdentityOperator, FunctionOperator, PlannedOperator, planned_operator,

@@ -1,0 +1,89 @@
+// DIA SpMM: Y[i, c] = sum_d data[d * pitch + i] * X[i + offsets[d], c], with X
+// (n, k) and Y (m, k) row-major and contiguous.
+//
+// Replaces the JAX package's Pallas DIA SpMM kernel, _dia_spmm_kernel
+// (kernels/pallas_dia.py:381, launched from _dia_spmm :342).  The JAX
+// package sends k <= 64 to an XLA path (_dia_spmm_xla :271) because Mosaic
+// lowers blocks under 128 lanes badly; here one kernel serves every k.
+//
+// Bound by bytes: ndiag * rows * sizeof(store) of diagonal data, X read once
+// (n * k * 4 in f32) and Y written once (m * k * 4).  A team of T lanes, T
+// the least power of two >= k capped at 32, spans a tile of T columns of one
+// row of Y; a block holds block / T rows, and the grid's second dimension
+// walks the column tiles.  So a warp reads a contiguous run of X (T values
+// of 32 / T consecutive rows of X per diagonal), the diagonal value of a row
+// is one broadcast load for its team, and the index math is shifts and
+// masks, with no division per item.  A k that is no power of two leaves
+// lanes of the last tile idle (k = 3: one of four).  The shifted rows of X are read again by the other diagonals
+// through L1/L2.  Bounds are checked in the kernel (0 <= i + off < n), so X
+// needs no padding.  Sums run in the accumulation type (f32 for f32 and
+// bf16 storage, f64 for f64), diagonal by diagonal in offset order, as the
+// plain version adds them.  Element offsets of X and Y are 64-bit: 1M rows
+// x k = 128 f32 is 512 MB, and n * k can pass 2^31.
+#include "common.cuh"
+
+template <typename Store, typename Acc>
+__global__ void dia_spmm_kernel(const Store* __restrict__ data,
+                                const int* __restrict__ offsets, int ndiag,
+                                long long pitch, const Acc* __restrict__ x,
+                                Acc* __restrict__ y, int m, int n, int k,
+                                int tile_shift) {
+  const int tile = 1 << tile_shift;
+  const long long i = static_cast<long long>(blockIdx.x) * (blockDim.x >> tile_shift) +
+                      (threadIdx.x >> tile_shift);
+  const int c = static_cast<int>(blockIdx.y) * tile + (threadIdx.x & (tile - 1));
+  if (i >= m || c >= k) return;
+  Acc acc = 0;
+  for (int d = 0; d < ndiag; ++d) {
+    const long long j = i + __ldg(offsets + d);
+    if (j >= 0 && j < n) acc += to_acc<Acc>(data[d * pitch + i]) * x[j * k + c];
+  }
+  y[i * k + c] = acc;
+}
+
+template <typename Store, typename Acc>
+static int launch(const void* data, const void* offsets, int ndiag,
+                  long long pitch, const void* x, void* y, int m, int n, int k,
+                  int block, void* stream) {
+  if (k < 1 || block % 32 != 0 || block > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int tile_shift = 0;
+  while ((1 << tile_shift) < k && tile_shift < 5) ++tile_shift;
+  const long long rows_per_block = block >> tile_shift;
+  const long long blocks = (m + rows_per_block - 1) / rows_per_block;
+  const long long tiles = (k + (1 << tile_shift) - 1) >> tile_shift;
+  if (blocks > 0x7fffffffLL || tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
+  dia_spmm_kernel<Store, Acc><<<grid, block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Store*>(data), static_cast<const int*>(offsets), ndiag,
+      pitch, static_cast<const Acc*>(x), static_cast<Acc*>(y), m, n, k,
+      tile_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" {
+
+int cusp_dia_spmm_f32(const void* data, const void* offsets, int ndiag,
+                      long long pitch, const void* x, void* y, int m, int n,
+                      int k, int block, void* stream) {
+  return launch<float, float>(data, offsets, ndiag, pitch, x, y, m, n, k,
+                              block, stream);
+}
+
+int cusp_dia_spmm_bf16(const void* data, const void* offsets, int ndiag,
+                       long long pitch, const void* x, void* y, int m, int n,
+                       int k, int block, void* stream) {
+  return launch<__nv_bfloat16, float>(data, offsets, ndiag, pitch, x, y, m, n,
+                                      k, block, stream);
+}
+
+int cusp_dia_spmm_f64(const void* data, const void* offsets, int ndiag,
+                      long long pitch, const void* x, void* y, int m, int n,
+                      int k, int block, void* stream) {
+  return launch<double, double>(data, offsets, ndiag, pitch, x, y, m, n, k,
+                                block, stream);
+}
+
+}  // extern "C"

@@ -1,9 +1,12 @@
-"""Sparse containers (counterpart of cusp_autotuned_tpu/formats; COO, CSR,
-DIA, ELL, ELLR and HYB are ported so far)."""
+"""Containers (counterpart of cusp_autotuned_tpu/formats; COO, CSR, DIA,
+ELL, ELLR, HYB and the dense Array2d are ported so far)."""
 
 from cusp_autotuned_tpu_torch.formats.base import MatrixBase
 from cusp_autotuned_tpu_torch.formats.coo import COO, coo_matrix
 from cusp_autotuned_tpu_torch.formats.csr import CSR, csr_matrix
+from cusp_autotuned_tpu_torch.formats.dense import (
+    Array2d, array1d, array1d_view, array2d, make_array2d_view,
+)
 from cusp_autotuned_tpu_torch.formats.dia import DIA, dia_matrix
 from cusp_autotuned_tpu_torch.formats.ell import (
     ELL, ELLR, ell_matrix, ellr_matrix, INVALID_INDEX,

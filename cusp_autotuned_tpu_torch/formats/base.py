@@ -70,6 +70,16 @@ def host_array(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def as_tensor(a, dtype=None, device=None) -> torch.Tensor:
+    """a as a tensor: a tensor stays on its device unless `device` names
+    another; host data goes to `device`, by default the CUDA device."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device or a.device, dtype=dtype or a.dtype)
+    from cusp_autotuned_tpu_torch.utils.config import resolve_device
+    return torch.as_tensor(np.asarray(a), dtype=dtype,
+                           device=resolve_device(device))
+
+
 def index_tensor(a, device) -> torch.Tensor:
     """Host indices as a new int32 tensor (never a view of the caller's array)."""
     return torch.tensor(np.asarray(a, dtype=np.int32), device=device)

@@ -5,7 +5,7 @@ module imports neither JAX nor the JAX package: the parity tests use it to
 run both packages on one matrix.  COO, CSR and DIA arrays keep the
 reference's padded layout, which the port's containers share; ELL slot
 arrays are cut from the reference's 128-multiple row count to the matrix's
-rows.
+rows; an Array2d keeps the reference's pitch.
 """
 
 from __future__ import annotations
@@ -15,16 +15,20 @@ from cusp_autotuned_tpu_torch.formats.base import index_tensor, value_tensor
 from cusp_autotuned_tpu_torch.utils.config import resolve_device
 
 
-def from_reference(fmt: str, arrays: dict, shape, nnz, offsets=None,
-                   device=None):
+def from_reference(fmt: str, arrays: dict, shape, nnz=None, offsets=None,
+                   device=None, orientation="c"):
     """The port's `fmt` container holding `arrays`, the fields of the JAX
     container as numpy arrays (COO: row, col, val; CSR: indptr, col, val,
     row; DIA: data; ELL: col, val; ELLR: col, val, row_lengths; HYB: the
     ELL part's as ell_col, ell_val and the COO part's as coo_row, coo_col,
-    coo_val), with its shape, nnz and, for DIA, its offsets.  It lands on
-    `device`, by default the CUDA device."""
+    coo_val; array2d: values, the pitched buffer, with its orientation),
+    with its shape, nnz and, for DIA, its offsets.  It lands on `device`,
+    by default the CUDA device."""
     device = resolve_device(device)
     shape = (int(shape[0]), int(shape[1]))
+    if fmt == "array2d":
+        return F.make_array2d_view(value_tensor(arrays["values"], None, device),
+                                   shape[0], shape[1], orientation)
     if fmt == "coo":
         return F.COO(row=index_tensor(arrays["row"], device),
                      col=index_tensor(arrays["col"], device),

@@ -47,6 +47,15 @@ _SIGNATURES = {
     # row, col, val, nnz, x, y, carry_row, carry_val, vpt, block, stream
     "cusp_coo_spmv": ((_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp, _i32, _i32,
                        _vp), _TYPED),
+    # data, offsets, ndiag, pitch, X, Y, m, n, k, block, stream
+    "cusp_dia_spmm": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
+                       _vp), _TYPED),
+    # indptr, col, val, perm, bins (host), nbins, X, Y, k, block, stream
+    "cusp_binned_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32,
+                          _vp), _TYPED),
+    # row, col, val, nnz, X, Y, k, carry_row, carry_val, vpt, block, stream
+    "cusp_coo_spmm": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _vp, _vp, _i32,
+                       _i32, _vp), _TYPED),
     # x, y, n, block, stream
     "cusp_stream_triad": ((_vp, _vp, _i64, _i32, _vp), ("f32",)),
 }

@@ -8,8 +8,10 @@ the style of the fork's CSR kernel family: the host plan sorts the rows
 into bins by length, each bin runs with its own number of lanes per row,
 and rows longer than `hub_cap` get a block each (in place of the JAX
 segment-sum spill).  With a fixed `threads_per_row` every other row uses
-that one group size.  The SpMM site (`_binned_spmm_kernel`) is not ported
-yet: a 2-D x raises.
+that one group size.  Its SpMM site, `_binned_spmm_kernel` (:229, and :274
+at K > 0), becomes `csrc/binned_spmm.cu`, which walks the same plan with
+lanes over a tile of up to 32 columns: the reference's CSR x array2d block
+kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
+from cusp_autotuned_tpu_torch.kernels.dia import _scale
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -56,8 +59,9 @@ def plan_bins(indptr, threads_per_row=0, hub_cap=HUB_CAP):
 def binned_spmv_plain(indptr, col, val, perm, bins, x, num_rows):
     """The plan walked bin by bin in PyTorch: each bin's rows gather their
     entries and add them up with an index_add_, accumulated in x's dtype.
-    A row that no bin lists stays NaN, so a broken plan cannot pass."""
-    y = x.new_full((num_rows,), float("nan"))
+    A row that no bin lists stays NaN, so a broken plan cannot pass.  x may
+    be (n,) or (n, k): this is the plain version of both kernels."""
+    y = x.new_full((num_rows,) + x.shape[1:], float("nan"))
     for start, count, _ in bins.tolist():
         rows = perm[start:start + count].long()
         lo, hi = indptr[rows].long(), indptr[rows + 1].long()
@@ -65,22 +69,14 @@ def binned_spmv_plain(indptr, col, val, perm, bins, x, num_rows):
         seg = torch.repeat_interleave(torch.arange(count, device=x.device), lens)
         pos = (torch.arange(int(lens.sum()), device=x.device)
                + torch.repeat_interleave(lo - (torch.cumsum(lens, 0) - lens), lens))
-        prod = val[pos].to(x.dtype) * torch.index_select(x, 0, col[pos])
-        y[rows] = x.new_zeros(count).index_add_(0, seg, prod)
+        prod = _scale(val[pos].to(x.dtype), torch.index_select(x, 0, col[pos]))
+        y[rows] = x.new_zeros((count,) + x.shape[1:]).index_add_(0, seg, prod)
     return y
 
 
-def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLOCK):
-    """y = A @ x through the row bins.  On CPU tensors this is the plain
-    version; on CUDA tensors it launches the kernel (bins, a small host
-    tensor, travel as kernel arguments), and raises on what the kernel does
-    not take."""
-    if x.dim() != 1:
-        raise NotImplementedException(
-            "the binned kernel takes 1-D x; SpMM is not ported yet")
+def _check(indptr, col, val, perm, bins, x, shape, rank):
+    """Raise on what the kernels do not take."""
     m, n = shape
-    if x.device.type == "cpu" and val.device.type == "cpu":
-        return binned_spmv_plain(indptr, col, val, perm, bins, x, m)
     if not (indptr.device == col.device == val.device == perm.device
             == x.device) or x.device.type != "cuda" or bins.device.type != "cpu":
         raise InvalidInputException(
@@ -93,7 +89,8 @@ def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLO
             f"(got {val.dtype} values, {x.dtype} x)")
     if not all(t.dtype == torch.int32 for t in (indptr, col, perm, bins)):
         raise InvalidInputException("indptr, col, perm and bins must be int32")
-    if (indptr.shape != (m + 1,) or perm.shape != (m,) or x.shape != (n,)
+    if (indptr.shape != (m + 1,) or perm.shape != (m,) or x.dim() != rank
+            or x.shape[0] != n or (rank == 2 and x.shape[1] < 1)
             or col.shape != val.shape or bins.dim() != 2 or bins.shape[1] != 3):
         raise InvalidInputException(
             f"shape mismatch: indptr {tuple(indptr.shape)}, perm "
@@ -102,6 +99,22 @@ def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLO
             f"matrix {shape}")
     if not all(t.is_contiguous() for t in (indptr, col, val, perm, bins, x)):
         raise InvalidInputException("binned kernel needs contiguous tensors")
+
+
+def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLOCK):
+    """y = A @ x through the row bins.  On CPU tensors this is the plain
+    version; on CUDA tensors it launches the kernel (bins, a small host
+    tensor, travel as kernel arguments; a 2-D x goes to binned_spmm), and
+    raises on what the kernel does not take."""
+    if x.dim() == 2:
+        return binned_spmm(indptr, col, val, perm, bins, x, shape, block)
+    if x.dim() != 1:
+        raise NotImplementedException(
+            "the binned kernels take x of shape (n,) or (n, k)")
+    m = shape[0]
+    if x.device.type == "cpu" and val.device.type == "cpu":
+        return binned_spmv_plain(indptr, col, val, perm, bins, x, m)
+    _check(indptr, col, val, perm, bins, x, shape, 1)
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_binned_spmv", val.dtype, x.device, indptr, col, val,
@@ -111,6 +124,25 @@ def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLO
 
 
 binned_spmv.launches = 0
+
+
+def binned_spmm(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLOCK):
+    """Y = A @ X through the row bins for a dense row-major block X (n, k):
+    the plain version on CPU tensors, the SpMM kernel on CUDA tensors."""
+    m = shape[0]
+    if x.device.type == "cpu" and val.device.type == "cpu":
+        return binned_spmv_plain(indptr, col, val, perm, bins, x, m)
+    _check(indptr, col, val, perm, bins, x, shape, 2)
+    k = x.shape[1]
+    y = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    if m:
+        _build.launch("cusp_binned_spmm", val.dtype, x.device, indptr, col, val,
+                      perm, bins, bins.shape[0], x, y, k, block)
+        binned_spmm.launches += 1
+    return y
+
+
+binned_spmm.launches = 0
 
 
 def build_binned(A, config):

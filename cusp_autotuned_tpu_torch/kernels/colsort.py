@@ -9,8 +9,10 @@ style of the fork's `coo_warp_reduce`: the row-sorted entry stream is cut
 into chunks of 32 * `values_per_thread` entries, one per warp, summed by a
 segmented warp scan; rows cut by a chunk boundary leave as carries that a
 second small kernel folds into y in order.  Long rows are long segments,
-so there is no separate hub pass.  The SpMM sites are not ported yet: a
-2-D x raises.
+so there is no separate hub pass.  The SpMM sites, `_main_spmm_kernel`
+(:885) and `_hub_spmm_kernel` (:932) from :426, :500, :751 and :831, become
+`csrc/coo_spmm.cu`: the same chunks with lanes over a column tile and a
+carry per chunk end per column, folded in order.
 """
 
 from __future__ import annotations
@@ -31,22 +33,13 @@ VALUES_PER_THREAD = 4              # default: chunks of 128 entries
 
 def coo_spmv_plain(row, col, val, x, num_rows):
     """y[row[e]] += val[e] * x[col[e]] by a gather and an index_add_,
-    accumulated in x's dtype."""
+    accumulated in x's dtype; x may be (n,) or (n, k)."""
     return csr_spmv_plain(row, col, val, x, num_rows)
 
 
-def coo_spmv(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
-             block=_build.DEFAULT_BLOCK):
-    """y = A @ x for row-sorted entries (row, col, val) with no padding.  On
-    CPU tensors this is the plain version; on CUDA tensors it launches the
-    chunk kernel and the carry fold with `vpt` entries per lane per chunk,
-    and raises on what the kernels do not take."""
-    if x.dim() != 1:
-        raise NotImplementedException(
-            "the COO kernel takes 1-D x; SpMM is not ported yet")
-    m, n = shape
-    if x.device.type == "cpu" and val.device.type == "cpu":
-        return coo_spmv_plain(row, col, val, x, m)
+def _check(row, col, val, x, shape, rank):
+    """Raise on what the kernels do not take."""
+    n = shape[1]
     if not (row.device == col.device == val.device == x.device) \
             or x.device.type != "cuda":
         raise InvalidInputException(
@@ -58,12 +51,30 @@ def coo_spmv(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
             f"(got {val.dtype} values, {x.dtype} x)")
     if row.dtype != torch.int32 or col.dtype != torch.int32:
         raise InvalidInputException("row and col must be int32")
-    if not (row.shape == col.shape == val.shape) or x.shape != (n,):
+    if not (row.shape == col.shape == val.shape) or x.dim() != rank \
+            or x.shape[0] != n or (rank == 2 and x.shape[1] < 1):
         raise InvalidInputException(
             f"shape mismatch: row {tuple(row.shape)}, col {tuple(col.shape)}, "
             f"val {tuple(val.shape)}, x {tuple(x.shape)}, matrix {shape}")
     if not all(t.is_contiguous() for t in (row, col, val, x)):
         raise InvalidInputException("COO kernel needs contiguous tensors")
+
+
+def coo_spmv(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
+             block=_build.DEFAULT_BLOCK):
+    """y = A @ x for row-sorted entries (row, col, val) with no padding.  On
+    CPU tensors this is the plain version; on CUDA tensors it launches the
+    chunk kernel and the carry fold with `vpt` entries per lane per chunk (a
+    2-D x goes to coo_spmm), and raises on what the kernels do not take."""
+    if x.dim() == 2:
+        return coo_spmm(row, col, val, x, shape, vpt, block)
+    if x.dim() != 1:
+        raise NotImplementedException(
+            "the COO kernels take x of shape (n,) or (n, k)")
+    m = shape[0]
+    if x.device.type == "cpu" and val.device.type == "cpu":
+        return coo_spmv_plain(row, col, val, x, m)
+    _check(row, col, val, x, shape, 1)
     nnz = row.shape[0]
     y = torch.zeros(m, dtype=x.dtype, device=x.device)
     if nnz:
@@ -77,6 +88,31 @@ def coo_spmv(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
 
 
 coo_spmv.launches = 0
+
+
+def coo_spmm(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
+             block=_build.DEFAULT_BLOCK):
+    """Y = A @ X for row-sorted entries and a dense row-major block X (n, k):
+    the plain version on CPU tensors; on CUDA tensors the chunk kernel with
+    lanes over a column tile and the carry fold, a carry per chunk end per
+    column (one launch of the wrapper, two kernels)."""
+    m = shape[0]
+    if x.device.type == "cpu" and val.device.type == "cpu":
+        return coo_spmv_plain(row, col, val, x, m)
+    _check(row, col, val, x, shape, 2)
+    nnz, k = row.shape[0], x.shape[1]
+    y = torch.zeros((m, k), dtype=x.dtype, device=x.device)
+    if nnz:
+        chunks = -(-nnz // (32 * vpt))
+        carry_row = torch.empty(2 * chunks, dtype=torch.int32, device=x.device)
+        carry_val = torch.empty((2 * chunks, k), dtype=x.dtype, device=x.device)
+        _build.launch("cusp_coo_spmm", val.dtype, x.device, row, col, val, nnz,
+                      x, y, k, carry_row, carry_val, vpt, block)
+        coo_spmm.launches += 1
+    return y
+
+
+coo_spmm.launches = 0
 
 
 def build_colsort(A, config):

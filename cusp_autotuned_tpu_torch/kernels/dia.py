@@ -1,11 +1,13 @@
-"""DIA SpMV: the CUDA kernel's wrapper, its plain PyTorch version, and the
-plan builder.
+"""DIA SpMV and SpMM: the CUDA kernels' wrappers, their plain PyTorch
+version, and the plan builder.
 
 Replaces the JAX package's Pallas DIA kernels, `_dia_kernel`
 (cusp_autotuned_tpu/kernels/pallas_dia.py:393) and `_dia_streamed_kernel`
-(:240), with one CUDA kernel, `csrc/dia_spmv.cu`.  The kernel is bound by
-bytes, k·rows·s of diagonal data plus 2·m·4 for x and y; see the source for
-its design.  DIA × dense blocks (`_dia_spmm_kernel`) are not ported yet.
+(:240), with one CUDA kernel, `csrc/dia_spmv.cu`, and its SpMM kernel
+`_dia_spmm_kernel` (:381, with the XLA path for k <= 64, :271) with one
+kernel for every k, `csrc/dia_spmm.cu`.  Both are bound by bytes: ndiag·rows
+of diagonal data in the storage type, plus x read and y written once; see
+the sources for their design.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def _pad_rows(x, left, right):
 def dia_spmv_plain(data, offsets, x, shape):
     """y = A @ x by shifted slices of a zero-padded x, one per diagonal,
     accumulated in x's dtype (the XLA path of the JAX package's
-    ops/multiply.py:spmv_dia).  x may be (n,) or (n, k)."""
+    ops/multiply.py:spmv_dia).  x may be (n,) or (n, k): this is the plain
+    version of both kernels."""
     m, n = shape
     mp = data.shape[1]
     left = -min(0, min(offsets))
@@ -45,18 +48,10 @@ def dia_spmv_plain(data, offsets, x, shape):
     return acc[:m]
 
 
-def dia_spmv(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
-    """y = A @ x for a DIA matrix with diagonals `data` (k, pitch) and int32
-    `offsets` (k,).  On CPU tensors this is the plain version; on CUDA
-    tensors it launches the kernel with `block` threads per block, and
-    raises on what the kernel does not take."""
-    if x.dim() != 1:
-        raise NotImplementedException(
-            "the DIA kernel takes 1-D x; DIA x dense blocks are not ported yet")
-    if x.device.type == "cpu" and data.device.type == "cpu":
-        return dia_spmv_plain(data, tuple(offsets.tolist()), x, shape)
+def _check(data, offsets, x, shape, rank):
+    """Raise on what the kernels do not take."""
     m, n = shape
-    k, pitch = data.shape
+    nd, pitch = data.shape
     if not (data.device == offsets.device == x.device) or x.device.type != "cuda":
         raise InvalidInputException(
             f"DIA kernel needs data, offsets and x on one CUDA device "
@@ -65,23 +60,60 @@ def dia_spmv(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
         raise InvalidInputException(
             f"DIA kernel takes f32/bf16 data with f32 x, or f64 with f64 "
             f"(got {data.dtype} data, {x.dtype} x)")
-    if offsets.dtype != torch.int32 or offsets.shape != (k,):
-        raise InvalidInputException("offsets must be int32 of shape (k,)")
-    if x.shape != (n,) or pitch < m:
+    if offsets.dtype != torch.int32 or offsets.shape != (nd,):
+        raise InvalidInputException("offsets must be int32 of shape (ndiag,)")
+    if x.dim() != rank or x.shape[0] != n or (rank == 2 and x.shape[1] < 1) \
+            or pitch < m:
         raise InvalidInputException(
             f"shape mismatch: data {tuple(data.shape)}, x {tuple(x.shape)}, "
             f"matrix {shape}")
     if not (data.is_contiguous() and offsets.is_contiguous() and x.is_contiguous()):
         raise InvalidInputException("DIA kernel needs contiguous tensors")
+
+
+def dia_spmv(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
+    """y = A @ x for a DIA matrix with diagonals `data` (ndiag, pitch) and
+    int32 `offsets` (ndiag,).  On CPU tensors this is the plain version; on
+    CUDA tensors it launches the kernel with `block` threads per block (a
+    2-D x goes to dia_spmm), and raises on what the kernel does not take."""
+    if x.dim() == 2:
+        return dia_spmm(data, offsets, x, shape, block)
+    if x.dim() != 1:
+        raise NotImplementedException("the DIA kernels take x of shape (n,) or (n, k)")
+    if x.device.type == "cpu" and data.device.type == "cpu":
+        return dia_spmv_plain(data, tuple(offsets.tolist()), x, shape)
+    _check(data, offsets, x, shape, 1)
+    m, n = shape
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_dia_spmv", data.dtype, x.device,
-                      data, offsets, k, pitch, x, y, m, n, block)
+                      data, offsets, data.shape[0], data.shape[1], x, y, m, n,
+                      block)
         dia_spmv.launches += 1
     return y
 
 
 dia_spmv.launches = 0
+
+
+def dia_spmm(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
+    """Y = A @ X for a dense row-major block X (n, k): the plain version on
+    CPU tensors, the SpMM kernel on CUDA tensors."""
+    if x.device.type == "cpu" and data.device.type == "cpu":
+        return dia_spmv_plain(data, tuple(offsets.tolist()), x, shape)
+    _check(data, offsets, x, shape, 2)
+    m, n = shape
+    k = x.shape[1]
+    y = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    if m:
+        _build.launch("cusp_dia_spmm", data.dtype, x.device,
+                      data, offsets, data.shape[0], data.shape[1], x, y, m, n,
+                      k, block)
+        dia_spmm.launches += 1
+    return y
+
+
+dia_spmm.launches = 0
 
 
 def build_dia(A, config):

@@ -5,7 +5,7 @@ Every variant is a function build(A, config) -> fn(x) -> y.  The port's
 impls:
 
   dia         slices (plain shifted slices), gather (plain masked gather),
-              cuda (csrc/dia_spmv.cu)
+              cuda (csrc/dia_spmv.cu; csrc/dia_spmm.cu for a block x)
   csr, coo    segsum (plain gather + index_add_)
   ell         gather (plain slot gather)
   ellr        rowlen (plain slot gather masked by row_lengths), gather
@@ -13,12 +13,16 @@ impls:
   and, for csr/coo/ell/ellr/hyb:
               via_dia (re-lay the matrix out as DIA and run the inner DIA
               impl `dia_impl`), via_dense (densify, torch.matmul), cuda
-              (the matrix's entries planned as CSR for csrc/csr_spmv.cu),
-              binned (csrc/binned_spmv.cu), colsort (csrc/coo_spmv.cu)
+              (the matrix's entries planned as CSR for csrc/csr_spmv.cu,
+              vectors only), binned (csrc/binned_spmv.cu and, for a dense
+              block x (n, k), csrc/binned_spmm.cu), colsort
+              (csrc/coo_spmv.cu, csrc/coo_spmm.cu)
 
 `cuda` stands where the JAX package has `pallas`.  For a matrix on a CUDA
-device the default impl is `cuda`, and via_dia's default `dia_impl` is
-`cuda`; on the CPU the defaults are the plain paths, as in the reference.
+device the default impl is `cuda` (for a block x, `binned` except on dia),
+and via_dia's default `dia_impl` is `cuda`; on the CPU the defaults are the
+plain paths, as in the reference.  The SpMM kernels take no axis of their
+own: `block_size` and the plans' axes apply to both shapes of x.
 The tuning spaces mirror the JAX package's with Hopper launch axes in place
 of its TPU axes (VMEM windows, lanes, int16 packing): `block_size`,
 `threads_per_row` and `values_per_thread`.  The JAX package's rcm_dia,
@@ -167,12 +171,15 @@ VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
 
 
 def default_config(A, x=None) -> Dict[str, Any]:
-    """The untuned configuration: the kernel for a matrix on a CUDA device
-    and a vector x, the plain path otherwise (the kernels take no 2-D x
-    yet)."""
+    """The untuned configuration: on a CUDA device a kernel, the plain path
+    on the CPU.  For a vector x that is the `cuda` impl; for a dense block
+    x (n, k) the DIA SpMM kernel for dia and the binned SpMM kernel for the
+    other formats, since the CSR kernel (warp per row) takes vectors only,
+    as the JAX package's `pallas` impl does."""
     cfg = dict(_DEFAULTS[A.format])
-    if A.device.type == "cuda" and (x is None or x.dim() == 1):
-        cfg["impl"] = "cuda"
+    if A.device.type == "cuda":
+        block = x is not None and x.dim() == 2
+        cfg["impl"] = "binned" if block and A.format != "dia" else "cuda"
     return cfg
 
 

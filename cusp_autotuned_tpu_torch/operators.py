@@ -1,6 +1,9 @@
 """Linear operators (counterpart of cusp_autotuned_tpu/operators.py; parity
 target cusp/linear_operator.h): the identity, a wrapped function, and a
-planned SpMV kernel whose tensors the operator holds."""
+planned SpMV kernel whose tensors the operator holds.  An operator applies
+to a vector (n,) or a dense block (n, k) and exposes num_rows, num_cols
+and, when it was planned from a matrix, that matrix's dtype and device, as
+the eigensolvers read them."""
 
 from __future__ import annotations
 
@@ -10,8 +13,18 @@ from typing import Any, Callable, Tuple
 from cusp_autotuned_tpu_torch.formats.base import MatrixBase
 
 
+class _Shaped:
+    @property
+    def num_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def num_cols(self) -> int:
+        return self.shape[1]
+
+
 @dataclasses.dataclass(frozen=True)
-class IdentityOperator:
+class IdentityOperator(_Shaped):
     shape: Tuple[int, int] = (0, 0)
 
     format = "identity_operator"
@@ -21,10 +34,12 @@ class IdentityOperator:
 
 
 @dataclasses.dataclass(frozen=True)
-class FunctionOperator:
+class FunctionOperator(_Shaped):
     """Wraps y = fn(x) as an operator."""
     fn: Callable
     shape: Tuple[int, int] = (0, 0)
+    dtype: Any = None              # the planned matrix's, where known
+    device: Any = None
 
     format = "function_operator"
 
@@ -33,7 +48,7 @@ class FunctionOperator:
 
 
 @dataclasses.dataclass(frozen=True)
-class PlannedOperator:
+class PlannedOperator(_Shaped):
     """A built SpMV kernel: `arrays` holds its planned tensors, and
     `build(arrays, x)` applies it."""
     arrays: dict
@@ -41,6 +56,8 @@ class PlannedOperator:
     shape: Tuple[int, int] = (0, 0)
     impl: str = ""                 # kernel rail label (introspection)
     config: Any = None             # the configuration the plan was built with
+    dtype: Any = None              # the planned matrix's (its storage may differ)
+    device: Any = None
 
     format = "planned_operator"
 
@@ -62,8 +79,10 @@ def planned_operator(A, config=None):
         impl = getattr(fn, "plan_stats", {}).get("impl", str(cfg.get("impl", "")))
         return PlannedOperator(arrays=fn.planned_arrays, build=fn.apply,
                                shape=tuple(A.shape), impl=impl,
-                               config=tuple(sorted(cfg.items())))
-    return FunctionOperator(fn=fn, shape=tuple(A.shape))
+                               config=tuple(sorted(cfg.items())), dtype=A.dtype,
+                               device=A.device)
+    return FunctionOperator(fn=fn, shape=tuple(A.shape), dtype=A.dtype,
+                            device=A.device)
 
 
 def as_operator(M):

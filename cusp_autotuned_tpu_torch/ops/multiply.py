@@ -66,12 +66,17 @@ _SPMV = {"coo": spmv_coo, "csr": spmv_csr, "dia": spmv_dia,
 
 def multiply(A, B, *, use_autotuning: bool | None = None):
     """C = A @ B.  An operator applies itself; a sparse matrix times a
-    vector or a dense block takes the format's plain path; dense × dense is
+    vector or a dense block (a tensor (n, k) or an Array2d, read through its
+    logical view) takes the format's plain path; dense × dense is
     torch.matmul.  When autotuning is enabled (autotune.enable(), parity
     with cusp::ktt::enable) a sparse matrix of a tunable format routes
     through one tuning iteration instead, unless use_autotuning=False (the
     reference's hook, generic/multiply.inl:125-163)."""
     from cusp_autotuned_tpu_torch.operators import OPERATOR_TYPES
+    if isinstance(B, F.Array2d):
+        # sparse/operator x array2d block: the kernels read a row-major
+        # contiguous block, which a pitched or column-major buffer is not
+        B = B.to_dense().contiguous()
     if isinstance(A, OPERATOR_TYPES):
         return A(B)
     if F.is_sparse(A):

@@ -17,18 +17,20 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from cusp_autotuned_tpu_torch import gallery, solvers
+from cusp_autotuned_tpu_torch import eigen, gallery, solvers
 from cusp_autotuned_tpu_torch.autotune import ResultStatus, Tuner, calibrate
 from cusp_autotuned_tpu_torch.backend.reference import from_scipy, reference_spmv
 from cusp_autotuned_tpu_torch.kernels import build_spmv, default_config
 from cusp_autotuned_tpu_torch.kernels.binned import (
-    binned_spmv, binned_spmv_plain, build_binned,
+    binned_spmm, binned_spmv, binned_spmv_plain, build_binned,
 )
 from cusp_autotuned_tpu_torch.kernels.colsort import (
-    build_colsort, coo_spmv, coo_spmv_plain,
+    build_colsort, coo_spmm, coo_spmv, coo_spmv_plain,
 )
 from cusp_autotuned_tpu_torch.kernels.csr import build_csr, csr_spmv, csr_spmv_plain
-from cusp_autotuned_tpu_torch.kernels.dia import build_dia, dia_spmv, dia_spmv_plain
+from cusp_autotuned_tpu_torch.kernels.dia import (
+    build_dia, dia_spmm, dia_spmv, dia_spmv_plain,
+)
 from cusp_autotuned_tpu_torch.operators import planned_operator
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 from cusp_autotuned_tpu_torch.utils.exceptions import (
@@ -127,22 +129,28 @@ def test_f64_kernels_match_plain_on_card(cuda_device, fmt):
                                       ("coo", "cuda"), ("csr", "binned"),
                                       ("coo", "colsort")])
 def test_kernel_wrappers_raise_on_card(cuda_device, fmt, impl):
-    """A CUDA tensor the kernel cannot take raises; nothing falls back."""
+    """A CUDA tensor the kernel cannot take raises; nothing falls back.  The
+    CSR kernel takes vectors only; the others take a block (n, k) too."""
     A = gallery.poisson5pt(20, 10, format=fmt, device=cuda_device)
     fn = planned_operator(A, {"impl": impl})
-    counter = {"binned": binned_spmv, "colsort": coo_spmv}.get(
-        impl, dia_spmv if fmt == "dia" else csr_spmv)
-    before = counter.launches
+    counters = (dia_spmv, dia_spmm, csr_spmv, binned_spmv, binned_spmm,
+                coo_spmv, coo_spmm)
+    before = [c.launches for c in counters]
     x = _x(A.num_cols, cuda_device)
+    X = torch.stack([x, x], 1)
     with pytest.raises(NotImplementedException):
-        fn(torch.stack([x, x], 1))
+        fn(X if impl == "cuda" and fmt != "dia" else X[..., None])
     with pytest.raises(InvalidInputException):
         fn(x.double())
     with pytest.raises(InvalidInputException):
-        fn(torch.stack([x, x], 1)[:, 0])                # not contiguous
+        fn(X[:, 0])                                     # not contiguous
     with pytest.raises(InvalidInputException):
         fn(x.cpu())
-    assert counter.launches == before
+    if not (impl == "cuda" and fmt != "dia"):
+        for bad in (X.T.contiguous().T, X.double(), X.cpu(), X[:-1]):
+            with pytest.raises(InvalidInputException):
+                fn(bad)
+    assert [c.launches for c in counters] == before
 
 
 def test_cg_kernel_operator_matches_plain_on_card(cuda_device):
@@ -286,3 +294,134 @@ def test_tuner_times_the_device_not_the_host(cuda_device):
 
     ms = Tuner(warmup=1, repeats=4)._time(slow_host, x)
     assert 0 < ms < 0.5
+
+
+def _block(n, k, device, dtype=torch.float32, seed=3):
+    X = np.random.RandomState(seed).randn(n, k)
+    return torch.as_tensor(X, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 33, 128])
+@pytest.mark.parametrize("value_dtype", ["none", "bfloat16"])
+def test_dia_spmm_kernel_matches_plain_on_card(cuda_device, value_dtype, k):
+    A = gallery.poisson5pt(300, 200, format="dia", device=cuda_device)
+    fn = build_dia(A, {"value_dtype": value_dtype, "block_size": 128})
+    X = _block(A.num_cols, k, cuda_device)
+    before = dia_spmm.launches
+    Y = fn(X)
+    torch.cuda.synchronize()
+    assert dia_spmm.launches - before == 1 and Y.shape == (A.num_rows, k)
+    Yp = dia_spmv_plain(fn.planned_arrays["data"], A.offsets, X, A.shape)
+    torch.testing.assert_close(Y, Yp, **TOL["dia"])
+
+
+@pytest.mark.parametrize("shape,offsets", [((300, 520), [0, 150, 320]),
+                                           ((8, 300), [0, 1]),
+                                           ((520, 300), [-220, 0])])
+def test_dia_spmm_rectangular_on_card(cuda_device, shape, offsets):
+    rng = np.random.RandomState(19)
+    S = sp.diags([rng.uniform(0.5, 2.0, shape[0]) for _ in offsets], offsets,
+                 shape=shape)
+    A = from_scipy(S, "dia", dtype=torch.float32, device=cuda_device)
+    X = _block(shape[1], 16, cuda_device)
+    Y = build_dia(A, {})(X)
+    np.testing.assert_allclose(Y.cpu().numpy(), S @ X.cpu().double().numpy(),
+                               **TOL["rails"])
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 40])
+@pytest.mark.parametrize("tpr,hub_cap,block", [(0, 0, 256), (0, 64, 128),
+                                               (4, 100, 512), (0, 1, 256)])
+def test_binned_spmm_kernel_matches_plain_on_card(cuda_device, tpr, hub_cap,
+                                                  block, k):
+    """hub_cap 1 makes every row of two or more entries a hub row."""
+    A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_binned(A, {"threads_per_row": tpr, "hub_cap": hub_cap,
+                          "block_size": block})
+    a = fn.planned_arrays
+    X = _block(A.num_cols, k, cuda_device)
+    before = binned_spmm.launches
+    Y = fn(X)
+    torch.cuda.synchronize()
+    assert binned_spmm.launches - before == 1
+    Yp = binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"], a["bins"],
+                           X, A.num_rows)
+    torch.testing.assert_close(Y, Yp, **TOL["rails"])
+    torch.testing.assert_close(fn(X), Y, rtol=0, atol=0)    # deterministic
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 40])
+@pytest.mark.parametrize("vpt,block", [(1, 128), (4, 256), (16, 512)])
+def test_coo_spmm_kernel_matches_plain_on_card(cuda_device, vpt, block, k):
+    """The 4096-entry row spans many chunks; every partial of every column
+    reaches Y through the carry fold, and reruns are bitwise equal."""
+    A = from_scipy(_rails_matrix(), "coo", dtype=torch.float32, device=cuda_device)
+    fn = build_colsort(A, {"values_per_thread": vpt, "block_size": block})
+    a = fn.planned_arrays
+    X = _block(A.num_cols, k, cuda_device)
+    before = coo_spmm.launches
+    Y = fn(X)
+    torch.cuda.synchronize()
+    assert coo_spmm.launches - before == 1
+    Yp = coo_spmv_plain(a["row"], a["col"], a["val"], X, A.num_rows)
+    torch.testing.assert_close(Y, Yp, **TOL["rails"])
+    for _ in range(3):
+        torch.testing.assert_close(fn(X), Y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["via_dia", "binned", "colsort"])
+@pytest.mark.parametrize("store", ["bfloat16", "float64"])
+def test_spmm_other_storage_on_card(cuda_device, impl, store):
+    """via_dia runs the DIA SpMM kernel on a banded matrix."""
+    dtype = torch.float64 if store == "float64" else torch.float32
+    S = _rails_matrix(4) if impl != "via_dia" else sp.diags(
+        [np.ones(900), 2 * np.ones(1000), 3 * np.ones(900)], [-100, 0, 100])
+    A = from_scipy(S, "csr", dtype=dtype, device=cuda_device)
+    cfg = {"impl": impl}
+    if store == "bfloat16":
+        cfg["value_dtype"] = "bfloat16"
+    X = _block(A.num_cols, 5, cuda_device, dtype)
+    before = [c.launches for c in (dia_spmm, binned_spmm, coo_spmm)]
+    Y = build_spmv(A, cfg)(X)
+    assert Y.dtype == dtype
+    assert sum(c.launches for c in (dia_spmm, binned_spmm, coo_spmm)) == \
+        sum(before) + 1
+    ref = reference_spmv(A, X)
+    tol = 2e-2 if store == "bfloat16" else 1e-10
+    assert np.linalg.norm(Y.cpu().numpy() - ref) / np.linalg.norm(ref) < tol
+
+
+def test_block_defaults_and_walk_on_card(cuda_device):
+    """A 2-D x defaults to the DIA SpMM kernel for dia and to binned
+    otherwise; a walk at k = 8 validates every SpMM kernel, and the CSR
+    kernel (vectors only) is the one skippable result."""
+    A = from_scipy(_rails_matrix(6), "csr", dtype=torch.float32, device=cuda_device)
+    X = _block(A.num_cols, 8, cuda_device)
+    assert default_config(A, X)["impl"] == "binned"
+    D = gallery.poisson5pt(30, 30, format="dia", device=cuda_device)
+    assert default_config(D, X)["impl"] == "cuda"
+    before = [c.launches for c in (binned_spmm, coo_spmm)]
+    results = Tuner(warmup=1, repeats=2).tune(A, X, reference_computation=reference_spmv)
+    for r in results:
+        ok = (ResultStatus.Ok, ResultStatus.DeviceLimitsExceeded)
+        if r.configuration["impl"] == "cuda":
+            ok = (ResultStatus.CompilationFailed,)
+        assert r.status in ok, f"{r.configuration}: {r.status} {r.error}"
+    valid = {r.configuration["impl"] for r in results if r.is_valid()}
+    assert {"binned", "colsort", "segsum"} <= valid
+    assert binned_spmm.launches > before[0] and coo_spmm.launches > before[1]
+
+
+def test_lobpcg_kernel_operator_matches_plain_on_card(cuda_device):
+    A = gallery.poisson5pt(40, 40, format="csr", device=cuda_device)
+    out = {}
+    for impl in ("binned", "segsum"):
+        op = planned_operator(A, {"impl": impl})
+        before = binned_spmm.launches
+        lam, _, its = eigen.lobpcg(op, maxiter=200, tol=1e-5,
+                                   return_iterations=True)
+        out[impl] = (float(lam), its, binned_spmm.launches - before)
+    exact = 4 + 4 * np.cos(np.pi / 41)
+    (lk, ik, nk), (lp, ip, np_) = out["binned"], out["segsum"]
+    assert abs(lk - exact) / exact < 1e-4 and abs(lp - exact) / exact < 1e-4
+    assert nk >= ik and np_ == 0

@@ -22,7 +22,8 @@ SLICE_MODULES = (
     "formats.ell", "formats.hyb", "gallery.generators", "gallery.random",
     "kernels.binned", "kernels.colsort", "kernels.pallas_spmv",
     "autotune.result", "autotune.search", "autotune.space", "autotune.tuner",
-    "autotune.calibrate",
+    "autotune.calibrate", "formats.dense", "eigen.arnoldi", "eigen.gram_schmidt",
+    "eigen.lanczos", "eigen.lobpcg", "eigen.spectral_radius",
 )
 
 

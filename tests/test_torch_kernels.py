@@ -93,10 +93,17 @@ def test_csr_plain_matches_pallas(name, fmt):
 
 @pytest.mark.parametrize("fmt", ["dia", "csr", "coo"])
 def test_cuda_impl_rejects_2d_x(fmt):
+    """The CSR kernel (csr/coo `cuda`) takes vectors only, as the JAX
+    package's `pallas` impl does; the DIA kernels take a 2-D x (the SpMM
+    kernel) and reject a rank above it."""
     A = gallery.poisson5pt(6, 5, format=fmt, device="cpu")
     fn = build_spmv(A, {"impl": "cuda"})
+    x = torch.ones(A.num_cols, 2)
+    if fmt == "dia":
+        assert fn(x).shape == (A.num_rows, 2)
+        x = x[..., None]
     with pytest.raises(NotImplementedException):
-        fn(torch.ones(A.num_cols, 2))
+        fn(x)
 
 
 @pytest.mark.parametrize("fmt", ["dia", "csr"])

@@ -187,8 +187,9 @@ def test_rails_refuse_what_they_cannot_plan(impl):
         build_spmv(empty, {"impl": impl})
     A = from_scipy(_tridiagonal(40), "csr", dtype=torch.float32, device="cpu")
     fn = build_spmv(A, {"impl": impl})
+    assert fn(torch.ones(A.num_cols, 2)).shape == (A.num_rows, 2)   # SpMM
     with pytest.raises(NotImplementedException):
-        fn(torch.ones(A.num_cols, 2))           # SpMM waits for its slice
+        fn(torch.ones(A.num_cols, 2, 1))        # neither (n,) nor (n, k)
     with pytest.raises(InvalidInputException):
         fn(torch.ones(A.num_cols, device="meta"))
     bad = {"binned": {"threads_per_row": 3}, "colsort": {"values_per_thread": 0.5}}
