@@ -92,6 +92,16 @@ SPMV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
                 "stream_triad")
 SPMM_KERNELS = ("dia_spmm", "binned_spmm", "coo_spmm")
 KERNELS = SPMV_KERNELS + SPMM_KERNELS
+# the kernels each wrapper launches, each once a call (the COO wrappers'
+# torch.zeros adds a fill kernel, which is PyTorch's own)
+WRAPPER_KERNELS = {
+    "dia_spmv": ("dia_spmv_kernel",), "csr_spmv": ("csr_spmv_kernel",),
+    "binned_spmv": ("binned_spmv_kernel",),
+    "coo_spmv": ("coo_chunk_kernel", "coo_fold_kernel"),
+    "stream_triad": ("stream_triad_kernel",), "dia_spmm": ("dia_spmm_kernel",),
+    "binned_spmm": ("binned_spmm_kernel",),
+    "coo_spmm": ("coo_spmm_chunk_kernel", "coo_spmm_fold_kernel"),
+}
 EARLIER_VIA_DIA_MS = "0.36-0.70"     # PERF.md §5, H100 80GB HBM3, 700 W
 
 
@@ -123,14 +133,16 @@ def median_ms(fn, samples=SAMPLES, per_sample=PER_SAMPLE):
 def kernel_name(key):
     """A profiler key's function name, without namespace, template and
     arguments: 'void (anonymous namespace)::coo_spmm_fold_kernel<float>(...)'
-    -> 'coo_spmm_fold_kernel'."""
+    -> 'coo_spmm_fold_kernel'.  Used to find a wrapper's kernels; the
+    records stay keyed by the full key, so kernels of one name and
+    different templates are not merged."""
     base = key.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
     parts = base.replace("::", " ").split()
     return parts[-1] if parts else key[:40]
 
 
 def device_kernels(fn, calls=PER_SAMPLE):
-    """{kernel name: (device ms per call, launches per call)} that
+    """{profiler key: (device ms per call, launches per call)} that
     torch.profiler records over `calls` calls of fn.  A first step of
     `calls` calls warms the tracer up and is dropped: without it the
     profiler lost up to all launches of the first calls (PERF.md §7)."""
@@ -146,30 +158,53 @@ def device_kernels(fn, calls=PER_SAMPLE):
     for e in prof.key_averages():
         # ProfilerStep# is the schedule's own annotation, not a kernel
         if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep"):
-            name = kernel_name(e.key)
-            ms, n = out.get(name, (0.0, 0))
-            out[name] = (ms + e.self_device_time_total / 1e3 / calls,
-                         n + e.count / calls)
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + e.self_device_time_total / 1e3 / calls,
+                          n + e.count / calls)
     return out
 
 
-def device_ms(fn, calls=PER_SAMPLE, once_each=False):
-    """(device ms per call, the least share of a kernel's launches that
-    the profiler recorded).  The time sums every kernel of the call (the
-    fill, chunk and fold kernels of a COO call).  The profiler drops some
-    launches' records (PERF.md §7), so for fn that launches each of its
-    kernels once a call (a kernel wrapper: once_each) the time is the sum of
-    each kernel's mean over its recorded launches; otherwise it is the
-    recorded time over `calls`, a lower bound where records were dropped.
-    Where a call's host work outlasts its kernels, this is below
-    median_ms."""
+def wrapper_kernels(fn):
+    """The names of the kernels that fn's kernel wrappers launch in one
+    call of fn, read from the wrappers' launch counts."""
+    before = read_counts()
+    fn()
+    return {name for w, n in read_counts().items() if n > before[w]
+            for name in WRAPPER_KERNELS[w]}
+
+
+def device_ms(fn, calls=PER_SAMPLE):
+    """(device ms per call or None where not measured, the least share of
+    an expected kernel's launches that the profiler recorded or None, the
+    per-kernel records).  The time sums every kernel of the call (the fill,
+    chunk and fold kernels of a COO call).  The profiler drops some
+    launches' records (PERF.md §7).  Where fn launches kernel wrappers,
+    each of its kernels runs once a call: the time is then the sum of each
+    kernel's mean over its recorded launches, and it is not measured
+    unless every kernel of those wrappers has a recorded launch.  Where fn
+    launches no wrapper (a plain version) it is the recorded time over
+    `calls`, a lower bound where records were dropped.  Where a call's host
+    work outlasts its kernels, this is below median_ms."""
+    expect = wrapper_kernels(fn)
     kernels = device_kernels(fn, calls)
     if not kernels:
-        return 0.0, 0.0
-    seen = min(n for _, n in kernels.values())
-    if once_each:
-        return sum(ms / n for ms, n in kernels.values()), seen
-    return sum(ms for ms, _ in kernels.values()), seen
+        return None, None, kernels
+    if not expect:
+        return sum(ms for ms, _ in kernels.values()), None, kernels
+    seen = min(sum(n for key, (_, n) in kernels.items() if kernel_name(key) == name)
+               for name in expect)
+    if seen == 0:
+        return None, 0.0, kernels
+    return sum(ms / n for ms, n in kernels.values()), seen, kernels
+
+
+def describe_device(t, seen):
+    if t is None:
+        return "device time not measured" + (
+            " (a kernel of the call has no recorded launch)" if seen == 0 else "")
+    return f"{t:.4f} ms device" + (
+        f" (profiler recorded x{seen:.2f} of a kernel's launches)"
+        if seen is not None and seen < 1 else "")
 
 
 def bound(nbytes, flops):
@@ -203,20 +238,15 @@ def compare(name, kernel, plain, rtol, atol, useful_bytes, flops, triad_gbps,
     library_ms = (median_ms(library, samples, per_sample) if library is not None
                   else None)
 
-    def device(fn, once_each):
-        t, seen = device_ms(fn, per_sample, once_each)
-        if t <= 0:
-            return "device time not measured"
-        return f"{t:.4f} ms device" + (
-            f" (profiler recorded x{seen:.2f} of a kernel's launches)"
-            if once_each and seen < 1 else "")
+    def device(fn):
+        return describe_device(*device_ms(fn, per_sample)[:2])
 
     gbps = useful_bytes / ms / 1e6
     log(f"  {name}: max_abs_err {err:.3e}; kernel {ms:.4f} ms/call, "
-        f"{device(kernel, True)}, {gbps:.1f} GB/s useful = "
+        f"{device(kernel)}, {gbps:.1f} GB/s useful = "
         f"{100 * gbps / triad_gbps:.1f} % of the triad, bound "
         f"{useful_bytes / triad_gbps / 1e6:.4f} ms; plain {plain_ms:.4f} "
-        f"ms/call, {device(plain, False)}"
+        f"ms/call, {device(plain)}"
         + (f"; library {library_ms:.4f} ms/call" if library is not None else ""))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": useful_bytes, "flops": flops}
@@ -383,8 +413,9 @@ def rails_phase(device, triad_gbps, matrices):
         "plus rtol 1e-4 of each row's sum of |a_ij x_j| (f32 rounding grows "
         "with the terms, not with their sum, and the power-law rows of 4e4 "
         "entries cancel); default plans (binned by length, hub_cap 1024; "
-        "chunks of 128 entries); useful bytes: binned nnz*(4+4) + (m+1)*4 + "
-        "m*4 (perm) + (n+m)*4, coo nnz*(4+4+4) + (n+m)*4")
+        "chunks of 128 entries); useful bytes, the matrix as CSR or COO once "
+        "and x and y once: binned nnz*(4+4) + (m+1)*4 + (n+m)*4, coo "
+        "nnz*(4+4+4) + (n+m)*4")
     out = {"binned_spmv": {}, "coo_spmv": {}}
     for name, A in matrices.items():
         describe(name, A)
@@ -403,7 +434,7 @@ def rails_phase(device, triad_gbps, matrices):
             f"binned {name}", lambda: fb(x),
             lambda: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
                                       a["bins"], x, m),
-            RAIL_RTOL, RAIL_ATOL, nnz * 8 + (3 * m + 1 + n) * 4, 2 * nnz,
+            RAIL_RTOL, RAIL_ATOL, nnz * 8 + (m + 1) * 4 + (n + m) * 4, 2 * nnz,
             triad_gbps, library, RAIL_SAMPLES, scale)
         out["coo_spmv"][name] = compare(
             f"coo {name}", lambda: fc(x),
@@ -485,8 +516,8 @@ def rails_spmm_phase(device, triad_gbps, matrices):
 
     log("binned_spmm / coo_spmm: kernels vs plain on the card, atol 1e-4 plus "
         "rtol 1e-4 of each (row, column)'s sum of |a_ij X_jc|; default plans; "
-        "useful bytes: binned nnz*(4+4) + (m+1)*4 + m*4 (perm) + (n+m)*k*4, "
-        "coo nnz*(4+4+4) + (n+m)*k*4")
+        "useful bytes: binned nnz*(4+4) + (m+1)*4 + (n+m)*k*4, coo "
+        "nnz*(4+4+4) + (n+m)*k*4")
     cases = [(f"{name} k=16", A, {}, 16) for name, A in matrices.items()]
     small = [  # tests/test_pallas.py:250, :281, :473, :489
         ("poisson9pt 30x30", gallery.poisson9pt(30, 30, format="csr", device=device),
@@ -512,7 +543,7 @@ def rails_spmm_phase(device, triad_gbps, matrices):
             f"binned {name}", lambda: fb(X),
             lambda: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
                                       a["bins"], X, m),
-            RAIL_RTOL, RAIL_ATOL, nnz * 8 + (2 * m + 1) * 4 + (n + m) * k * 4,
+            RAIL_RTOL, RAIL_ATOL, nnz * 8 + (m + 1) * 4 + (n + m) * k * 4,
             2 * nnz * k, triad_gbps, library, SPMM_SAMPLES, scale, SPMM_PER_SAMPLE)
         out["coo_spmm"][name] = compare(
             f"coo {name}", lambda: fc(X),
@@ -678,16 +709,11 @@ def walk(name, A, x, need=("binned", "colsort", "cuda")):
     for r in sorted((r for r in results if r.is_valid()),
                     key=lambda r: r.duration_ms)[:4]:
         fn = build_spmv(A, r.configuration)
-        kernels = device_kernels(lambda: fn(x))
-        # a kernel plan launches each of its kernels once a call: its mean
-        # over the recorded launches stands for every call
-        once = r.configuration["impl"] in ("cuda", "binned", "colsort") or \
-            r.configuration.get("dia_impl") == "cuda"
-        t = sum(ms / n if once else ms for ms, n in kernels.values())
-        device = (f"{t:.4f} ms device (" + ", ".join(
-            f"{k} {ms:.4f} ms x{n:g} recorded" for k, (ms, n) in kernels.items())
-            + ")") if kernels else "device time not measured (no launch recorded)"
-        log(f"    leader {r.duration_ms:.4f} ms tuned, {device}: {r.configuration}")
+        t, seen, kernels = device_ms(lambda: fn(x))
+        log(f"    leader {r.duration_ms:.4f} ms tuned, {describe_device(t, seen)} ("
+            + ", ".join(f"{kernel_name(k)} {ms:.4f} ms x{n:g} recorded"
+                        for k, (ms, n) in kernels.items())
+            + f"): {r.configuration}")
     return best
 
 
@@ -877,8 +903,9 @@ def spmm_phase(device, matrices):
         f"wall, {busy / prof_steps:.4f} ms/iteration device "
         f"({100 * busy / wall16:.1f} % busy), "
         f"{sum(n for _, n in kernels.values()) / prof_steps:.1f} kernels/iteration; "
-        f"top: " + ", ".join(f"{k} {ms / prof_steps:.4f} ms x{n / prof_steps:g}"
-                             for k, (ms, n) in top))
+        "top, ms and launches per iteration, by the profiler's full key:")
+    for key, (ms, n) in top:
+        log(f"    {ms / prof_steps:.4f} ms x{n / prof_steps:g}  {key}")
     if x.shape != (A.num_rows,) or not torch.isfinite(x).all():
         raise RuntimeError("spmm: lobpcg's vector is not finite or not of shape (n,)")
     # the Rayleigh quotient never passes the largest eigenvalue; 7.99 is far
