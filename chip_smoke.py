@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Three main paths, each driven with every kernel's launch count set to 0
+Four main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
@@ -22,7 +22,15 @@ just before it and read just after:
             Array2d of X, the walk and tuned_operator on the skewed 1M-row
             matrix at k = 16, eigen.lobpcg (100 iterations) on the operator
             tuned for a (n, 3) block, and a 100x100 LOBPCG against the
-            analytic eigenvalue and against the plain operator.
+            analytic eigenvalue and against the plain operator;
+  suite     the scattered-pattern rails on the Williams/Bell-Garland suite:
+            gallery.williams_suite(scale=2.0)'s five scattered entries
+            (Economics, FEM/Accelerator, Circuit, Webbase, LP) as CSR on the
+            card, the validated vector walk (tune) on each with its leader
+            and the best colsort2, routed, binned and colsort configurations
+            in device ms, tuned_operator(A) applied once against the plain
+            product, and a k = 16 block walk and tuned_operator(A, X) on
+            Economics.
 
 Phases:
 
@@ -46,10 +54,19 @@ Phases:
                the row-binned and COO SpMM kernels against their plain
                versions at k = 16 on the four matrices above, and on the JAX
                package's SpMM test shapes
+  colsort2_spmv, routed_spmv
+               the colsort2 and routed kernels (with the colsort2 hub pair
+               as routed's tail) against their plain versions on the four
+               matrices above and on the JAX package's colsort2 and routed
+               test shapes
+  colsort2_spmm, routed_spmm
+               the same at k = 16 on the four matrices, and on the JAX
+               package's SpMM test shapes of the two rails
   cg           the cg.cu path; then a 100x100 solve through the kernel
                operator against one through the plain operator
   autotune     the autotune path
   spmm         the spmm path
+  suite        the suite path
 
 Every SpMV and SpMM line gives the kernel's time per call (CUDA events
 over back-to-back calls) and device time (torch.profiler, every kernel of
@@ -91,7 +108,8 @@ FORMATS = ("dia", "ell", "ellr", "csr", "coo", "hyb")
 SPMV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
                 "stream_triad")
 SPMM_KERNELS = ("dia_spmm", "binned_spmm", "coo_spmm")
-KERNELS = SPMV_KERNELS + SPMM_KERNELS
+SUITE_KERNELS = ("colsort2_spmv", "routed_spmv", "colsort2_spmm", "routed_spmm")
+KERNELS = SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS
 # the kernels each wrapper launches, each once a call (the COO wrappers'
 # torch.zeros adds a fill kernel, which is PyTorch's own)
 WRAPPER_KERNELS = {
@@ -101,7 +119,18 @@ WRAPPER_KERNELS = {
     "stream_triad": ("stream_triad_kernel",), "dia_spmm": ("dia_spmm_kernel",),
     "binned_spmm": ("binned_spmm_kernel",),
     "coo_spmm": ("coo_spmm_chunk_kernel", "coo_spmm_fold_kernel"),
+    "colsort2_spmv": ("colsort2_main_kernel",),
+    "colsort2_spmm": ("colsort2_spmm_main_kernel",),
+    "routed_spmv": ("routed_spmv_kernel",), "routed_spmm": ("routed_spmm_kernel",),
+    # the hub pair of a colsort2 plan with hub rows, and routed's tail
+    "colsort2_hub": ("colsort2_hub_kernel", "colsort2_hub_fold_kernel"),
+    "colsort2_hub_spmm": ("colsort2_spmm_hub_kernel", "colsort2_spmm_hub_fold_kernel"),
 }
+# the phases' plans of the two new rails: two planes of 8 entries (rows
+# above 16 entries in the hub region), and 4096-column windows
+COLSORT2_CONFIG = {"vrow_planes": 2, "vrow_len": 8, "block_size": 256}
+ROUTED_CONFIG = {"window": 4096, "block_size": 256}
+SUITE_SCALE = 2.0
 EARLIER_VIA_DIA_MS = "0.36-0.70"     # PERF.md §5, H100 80GB HBM3, 700 W
 
 
@@ -554,6 +583,171 @@ def rails_spmm_phase(device, triad_gbps, matrices):
     return {k: v["poisson5pt 1000x1000 f32 k=16"] for k, v in out.items()}
 
 
+def random_csr(m, n, density, seed, device, eye=False):
+    """A seeded m x n CSR matrix of m * n * density uniform draws
+    (duplicates merged), plus the identity where asked: the shapes and
+    densities of the JAX package's rail tests, drawn by index (scipy's
+    sparse.random walks every cell, minutes at 1e9 cells on some hosts)."""
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    nnz = int(round(m * n * density))
+    S = sp.coo_matrix((rng.uniform(-1.0, 1.0, nnz),
+                       (rng.randint(0, m, nnz), rng.randint(0, n, nnz))), shape=(m, n))
+    if eye:
+        S = S + sp.eye(m, n)
+    return from_scipy(S.tocsr(), "csr", dtype=torch.float32, device=device)
+
+
+def hub_row_csr(device):
+    """tests/test_pallas.py:835's shape: 3000 x 3000 at density 8e-4 plus a
+    400-entry row 7."""
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy, to_scipy
+    import scipy.sparse as sp
+    rng = np.random.RandomState(3)
+    hub = sp.coo_matrix((rng.randn(400), (np.full(400, 7),
+                                          rng.choice(3000, 400, replace=False))),
+                        shape=(3000, 3000))
+    S = to_scipy(random_csr(3000, 3000, 8e-4, 3, "cpu")) + hub
+    return from_scipy(S.tocsr(), "csr", dtype=torch.float32, device=device)
+
+
+def routed_hub_cap(A):
+    """(hub_cap, tail share): 0 (the default, max(64, 4 nnz / m)) where the
+    routed plan's tail holds at most half the entries, else the least power
+    of two above it that brings the tail to half or less, so that a
+    tail-dominant matrix still reaches the routed kernel."""
+    from cusp_autotuned_tpu_torch.kernels.colsort2 import auto_hub_cap
+    lengths = torch.diff(A.indptr).cpu().numpy().astype(np.int64)
+    nnz = int(lengths.sum())
+
+    def tail(cap):
+        return float(lengths[lengths > cap].sum()) / max(nnz, 1)
+
+    cap = auto_hub_cap(nnz, A.num_rows)
+    if tail(cap) <= 0.5:
+        return 0, tail(cap)
+    cap = 1 << int(cap).bit_length()
+    while tail(cap) > 0.5:
+        cap <<= 1
+    return cap, tail(cap)
+
+
+def plain_product(A, X):
+    """(A @ X, each row's sum of |a_ij X_j|) through the plain CSR path, for a
+    vector or a block."""
+    from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv_plain
+    Y = csr_spmv_plain(A.row, A.col, A.val, X, A.num_rows)
+    scale = csr_spmv_plain(A.row, A.col, A.val.abs().double(), X.abs().double(),
+                           A.num_rows).float()
+    return Y, scale
+
+
+def new_rails_phase(device, triad_gbps, matrices):
+    """The colsort2 and routed kernels against their plain versions, SpMV
+    and SpMM; returns each kernel's record on poisson5pt 1000x1000."""
+    from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.kernels.colsort2 import (
+        build_colsort2, colsort2_spmv_plain)
+    from cusp_autotuned_tpu_torch.kernels.routed import (
+        build_routed, routed_spmv_plain)
+    from cusp_autotuned_tpu_torch.utils.exceptions import FormatConversionException
+
+    log(f"colsort2_spmv / routed_spmv / colsort2_spmm / routed_spmm: kernels vs "
+        f"plain on the card, atol 1e-4 plus rtol 1e-4 of each (row, column)'s sum "
+        f"of |a_ij x_j|; plans colsort2 {COLSORT2_CONFIG}, routed {ROUTED_CONFIG} "
+        f"unless the line says otherwise (routed's tail through the colsort2 hub "
+        f"pair); useful bytes, the matrix as CSR once and x and y once: "
+        f"nnz*(4+4) + (m+1)*4 + (n+m)*k*4")
+    big = list(matrices.items())
+    cases = [(name, A, {}, {}, 0) for name, A in big]
+    cases += [  # tests/test_pallas.py:541, :546, :559, :576, :827, :835, :925
+        ("poisson9pt 35x35", gallery.poisson9pt(35, 35, format="csr", device=device),
+         {}, {}, 0),
+        ("power-law 800 rows hub_cap 8", powerlaw_csr(800, 8000, 3, device),
+         {"hub_cap": 8}, {}, 0),
+        ("random 700x700 +I K=1", random_csr(700, 700, 0.02, 11, device, True),
+         {"vrow_planes": 1}, {}, 0),
+        ("random 700x700 +I K=4", random_csr(700, 700, 0.02, 11, device, True),
+         {"vrow_planes": 4}, {}, 0),
+        ("rect 300x900", random_csr(300, 900, 0.02, 13, device), {}, {}, 0),
+        ("rect 900x300", random_csr(900, 300, 0.02, 14, device), {}, {}, 0),
+        ("random scatter 4000x4000 +I", random_csr(4000, 4000, 6e-4, 11, device, True),
+         {}, {}, 0),
+        ("hub row 3000x3000 hub_cap 32", hub_row_csr(device), {}, {"hub_cap": 32}, 0),
+        ("rect 3000x5000", random_csr(3000, 5000, 5e-4, 9, device), {}, {}, 0),
+    ]
+    cases += [(f"{name} k=16", A, {}, {}, 16) for name, A in big]
+    cases += [  # tests/test_pallas.py:743, :756, :925
+        ("rect 500x700 k=10", random_csr(500, 700, 0.02, 17, device), {}, {}, 10),
+        ("power-law 600 rows hub_cap 8 k=6", powerlaw_csr(600, 6000, 9, device),
+         {"hub_cap": 8}, {}, 6),
+        ("rect 3000x5000 k=5", random_csr(3000, 5000, 5e-4, 9, device), {}, {}, 5),
+        ("power-law 800 rows hub_cap 8 k=3", powerlaw_csr(800, 8000, 3, device),
+         {"hub_cap": 8}, {}, 3),
+    ]
+    out = {k: {} for k in SUITE_KERNELS}
+    for name, A, c2cfg, rcfg, k in cases:
+        X = seeded_x(A.num_cols, 5, device) if k == 0 else \
+            seeded_block(A.num_cols, k, 5, device)
+        m, n, nnz = A.num_rows, A.num_cols, A.nnz
+        many = m >= 1_000_000
+        samples, per_sample = ((RAIL_SAMPLES if many else SAMPLES), PER_SAMPLE) \
+            if k == 0 else (SPMM_SAMPLES, SPMM_PER_SAMPLE)
+        _, scale = plain_product(A, X)
+        library = library_spmv(A, X)
+        useful = nnz * 8 + (m + 1) * 4 + (n + m) * max(k, 1) * 4
+        flops = 2 * nnz * max(k, 1)
+        kind = "spmv" if k == 0 else "spmm"
+        if k == 0:
+            describe(name, A)
+
+        fc = build_colsort2(A, {**COLSORT2_CONFIG, **c2cfg})
+        a, st = fc.planned_arrays, fc.plan_stats
+        out[f"colsort2_{kind}"][name] = compare(
+            f"colsort2 {name} (thr {st['thr']}, {st['hub_rows']} hub rows in "
+            f"{st['hub_vrows']} virtual rows)", lambda: fc(X),
+            lambda: colsort2_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"], X,
+                                        m, st["vrow_planes"], st["vrow_len"], st["thr"]),
+            RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
+            per_sample)
+        del fc, a
+
+        cap, share = routed_hub_cap(A)
+        if cap and "hub_cap" not in rcfg:
+            try:
+                build_routed(A, {**ROUTED_CONFIG, **rcfg})
+                raise RuntimeError(f"routed: {name} planned a tail of {share:.3f}")
+            except FormatConversionException as e:
+                log(f"    routed refuses the default hub_cap: {str(e)[:100]}; the "
+                    f"line runs hub_cap {cap} (tail {100 * share:.1f} %)")
+            rcfg = {**rcfg, "hub_cap": cap}
+        fr = build_routed(A, {**ROUTED_CONFIG, **rcfg})
+        r, st = fr.planned_arrays, fr.plan_stats
+        out[f"routed_{kind}"][name] = compare(
+            f"routed {name} (hub_cap {st['hub_cap']}, tail {st['tail']}, "
+            f"{st['staged_windows']} + {st['staged_spmm_windows']} staged "
+            f"SpMV + SpMM windows)", lambda: fr(X),
+            lambda: routed_spmv_plain(r["indptr"], r["col"], r["val"], r["hub"], X, m,
+                                      st["hub_cap"]),
+            RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
+            per_sample)
+        del fr, r, scale, library, X
+
+    # tests/test_pallas.py:942: both rails' packages refuse routed here
+    tail_dominant = powerlaw_csr(3000, 15000, 1, device)
+    try:
+        build_routed(tail_dominant, {})
+        raise RuntimeError("routed planned the tail-dominant power-law 3000 rows")
+    except FormatConversionException as e:
+        log(f"  routed on power-law 3000 rows (tests/test_pallas.py:942): refused, "
+            f"{str(e)[:120]}")
+    return {"colsort2_spmv": out["colsort2_spmv"]["poisson5pt 1000x1000 f32"],
+            "routed_spmv": out["routed_spmv"]["poisson5pt 1000x1000 f32"],
+            "colsort2_spmm": out["colsort2_spmm"]["poisson5pt 1000x1000 f32 k=16"],
+            "routed_spmm": out["routed_spmm"]["poisson5pt 1000x1000 f32 k=16"]}
+
+
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
@@ -561,6 +755,7 @@ def reset_counts():
 
 def counters():
     from cusp_autotuned_tpu_torch.autotune.calibrate import stream_triad
+    from cusp_autotuned_tpu_torch.kernels import colsort2, routed
     from cusp_autotuned_tpu_torch.kernels.binned import binned_spmm, binned_spmv
     from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmm, coo_spmv
     from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv
@@ -568,7 +763,12 @@ def counters():
     return {"dia_spmv": dia_spmv, "csr_spmv": csr_spmv,
             "binned_spmv": binned_spmv, "coo_spmv": coo_spmv,
             "stream_triad": stream_triad, "dia_spmm": dia_spmm,
-            "binned_spmm": binned_spmm, "coo_spmm": coo_spmm}
+            "binned_spmm": binned_spmm, "coo_spmm": coo_spmm,
+            "colsort2_spmv": colsort2.colsort2_spmv,
+            "colsort2_spmm": colsort2.colsort2_spmm,
+            "colsort2_hub": colsort2.colsort2_hub,
+            "colsort2_hub_spmm": colsort2.colsort2_hub_spmm,
+            "routed_spmv": routed.routed_spmv, "routed_spmm": routed.routed_spmm}
 
 
 def read_counts():
@@ -681,7 +881,7 @@ def walk(name, A, x, need=("binned", "colsort", "cuda")):
     CSR kernel takes vectors only, as the JAX package's `pallas` impl).  A
     kernel that does not build or launch raises out of tune().  Each impl
     in `need` must validate.  The leaders' device times come with the
-    profiler's reading of each of their kernels."""
+    profiler's reading of each of their kernels.  Returns the results."""
     from cusp_autotuned_tpu_torch import autotune
     from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
     from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
@@ -714,7 +914,7 @@ def walk(name, A, x, need=("binned", "colsort", "cuda")):
             + ", ".join(f"{kernel_name(k)} {ms:.4f} ms x{n:g} recorded"
                         for k, (ms, n) in kernels.items())
             + f"): {r.configuration}")
-    return best
+    return results
 
 
 def autotune_phase(device, matrices, b, viadia_its):
@@ -802,15 +1002,15 @@ def autotune_phase(device, matrices, b, viadia_its):
     return read_counts(), consts
 
 
-def check_block(name, Y, plain, scale):
+def check_block(name, Y, plain, scale, path="spmm"):
     """Y against the plain product at the kernels' bar."""
     torch.cuda.synchronize()
     if Y.shape != plain.shape or not torch.isfinite(Y).all():
-        raise RuntimeError(f"spmm: {name}: output {tuple(Y.shape)} is not finite "
+        raise RuntimeError(f"{path}: {name}: output {tuple(Y.shape)} is not finite "
                            f"or not of shape {tuple(plain.shape)}")
     diff = (Y - plain).abs()
     if not bool((diff <= RAIL_ATOL + RAIL_RTOL * scale).all()):
-        raise RuntimeError(f"spmm: {name} differs from the plain product by "
+        raise RuntimeError(f"{path}: {name} differs from the plain product by "
                            f"{float(diff.max()):.3e}")
     return float(diff.max())
 
@@ -825,15 +1025,8 @@ def spmm_phase(device, matrices):
     from cusp_autotuned_tpu_torch import autotune, eigen, gallery
     from cusp_autotuned_tpu_torch.eigen.lobpcg import CHECK_EVERY
     from cusp_autotuned_tpu_torch.formats import Array2d
-    from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv_plain
     from cusp_autotuned_tpu_torch.operators import planned_operator
     from cusp_autotuned_tpu_torch.ops.multiply import multiply
-
-    def plain_product(A, X):
-        Y = csr_spmv_plain(A.row, A.col, A.val, X, A.num_rows)
-        scale = csr_spmv_plain(A.row, A.col, A.val.abs().double(),
-                               X.abs().double(), A.num_rows).float()
-        return Y, scale
 
     A = matrices["poisson5pt 1000x1000 f32"]
     S = matrices["random 1M rows, skewed"]
@@ -936,6 +1129,80 @@ def spmm_phase(device, matrices):
     return launches
 
 
+RAILS = ("colsort2", "routed", "binned", "colsort")
+
+
+def rail_bests(name, results):
+    """Log the leader of a walk and the best configuration of each rail, in
+    the tuner's device ms, or why the rail has none."""
+    from cusp_autotuned_tpu_torch.autotune import ResultStatus
+    valid = [r for r in results if r.is_valid()]
+    lead = min(valid, key=lambda r: r.duration_ms)
+    parts = []
+    for impl in RAILS:
+        mine = [r for r in results if r.configuration["impl"] == impl]
+        ok = [r for r in mine if r.is_valid()]
+        if ok:
+            b = min(ok, key=lambda r: r.duration_ms)
+            keys = {k: v for k, v in b.configuration.items()
+                    if v not in (0, "none") and k not in ("impl", "dia_impl")}
+            parts.append(f"{impl} {b.duration_ms:.4f} {keys}")
+        else:
+            why = {r.status.value for r in mine} | {
+                (r.error or "")[:60] for r in mine
+                if r.status == ResultStatus.DeviceLimitsExceeded}
+            parts.append(f"{impl} none ({'; '.join(sorted(why))})")
+    log(f"suite: {name}: leader {label(lead.configuration)} {lead.duration_ms:.4f} "
+        f"ms {lead.configuration}; best device ms a call: " + "; ".join(parts))
+
+
+def suite_phase(device):
+    """The suite path; returns its launch counts."""
+    from cusp_autotuned_tpu_torch import autotune, gallery
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    from cusp_autotuned_tpu_torch.gallery.suite import SCATTERED
+
+    t0 = time.perf_counter()
+    suite = gallery.williams_suite(SUITE_SCALE, names=SCATTERED)
+    mats = {name: from_scipy(S, "csr", dtype=torch.float32, device=device)
+            for name, S in suite.items()}
+    del suite
+    log(f"suite: williams_suite({SUITE_SCALE}, names={SCATTERED}) on the card as "
+        f"CSR f32 in {time.perf_counter() - t0:.1f} s:")
+    for name, A in mats.items():
+        describe(name, A)
+        cap, share = routed_hub_cap(A)
+        log(f"    routed's tail at the default hub_cap: {100 * share:.1f} % of the "
+            f"entries" if not cap else f"    routed's tail at the default hub_cap "
+            f"is above half the entries: its walk configurations are refused")
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+    best = autotune.get_tuner().best_configuration
+    for name, A in mats.items():
+        x = seeded_x(A.num_cols, 13, device)
+        rail_bests(name, walk(f"suite {name}", A, x,
+                              need=("colsort2", "binned", "colsort")))
+        y_plain, scale = plain_product(A, x)
+        err = check_block(f"tuned_operator({name})", autotune.tuned_operator(A, x)(x),
+                          y_plain, scale, "suite")
+        log(f"suite: tuned_operator({name}) runs {best(A, x)}: max abs err "
+            f"{err:.3e} against the plain product")
+        del y_plain, scale
+    A = mats["Economics"]
+    X = seeded_block(A.num_cols, 16, 14, device)
+    rail_bests("Economics k=16", walk("suite Economics", A, X,
+                                      need=("colsort2", "routed", "binned")))
+    Y_plain, scale = plain_product(A, X)
+    err = check_block("tuned_operator(Economics, X)", autotune.tuned_operator(A, X)(X),
+                      Y_plain, scale, "suite")
+    log(f"suite: tuned_operator(Economics, X (n, 16)) runs {best(A, X)}: max abs "
+        f"err {err:.3e} against the plain product")
+    launches = read_counts()
+    log(f"suite: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch sees no CUDA device; the port's "
@@ -970,6 +1237,7 @@ def main():
     records.update(rails_phase(device, triad_gbps, matrices))
     records["dia_spmm"] = dia_spmm_phase(device, triad_gbps)
     records.update(rails_spmm_phase(device, triad_gbps, matrices))
+    records.update(new_rails_phase(device, triad_gbps, matrices))
     for name in ("uniform random 1M x 1M", "power-law 1M rows"):
         del matrices[name]
 
@@ -977,11 +1245,14 @@ def main():
         device, matrices["poisson5pt 1000x1000 f32"])
     tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its)
     spmm_launches = spmm_phase(device, matrices)
+    del matrices
+    suite_launches = suite_phase(device)
     log(f"launches: cg.cu path {cg_launches}; autotune path {tuned_launches}; "
-        f"spmm path {spmm_launches}")
+        f"spmm path {spmm_launches}; suite path {suite_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
-        [k for k in SPMM_KERNELS if spmm_launches[k] < 1]
+        [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
+        [k for k in SUITE_KERNELS if suite_launches[k] < 1]
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
@@ -998,6 +1269,14 @@ def main():
                         "cusp_autotuned_tpu/kernels/pallas_binned.py:229"),
         "coo_spmm": ("coo_spmm.cu",
                      "cusp_autotuned_tpu/kernels/pallas_colsort.py:885"),
+        "colsort2_spmv": ("colsort2_spmv.cu",
+                          "cusp_autotuned_tpu/kernels/pallas_colsort2.py:519"),
+        "routed_spmv": ("routed_spmv.cu",
+                        "cusp_autotuned_tpu/kernels/pallas_routed.py:426"),
+        "colsort2_spmm": ("colsort2_spmm.cu",
+                          "cusp_autotuned_tpu/kernels/pallas_colsort2.py:519"),
+        "routed_spmm": ("routed_spmm.cu",
+                        "cusp_autotuned_tpu/kernels/pallas_routed.py:426"),
     }
     kernels = []
     for name in KERNELS:
@@ -1008,7 +1287,7 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": (cg_launches[name] + tuned_launches[name]
-                         + spmm_launches[name]),
+                         + spmm_launches[name] + suite_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

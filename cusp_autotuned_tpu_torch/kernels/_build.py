@@ -56,6 +56,24 @@ _SIGNATURES = {
     # row, col, val, nnz, X, Y, k, carry_row, carry_val, vpt, block, stream
     "cusp_coo_spmm": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _vp, _vp, _i32,
                        _i32, _vp), _TYPED),
+    # indptr, col, val, x, y, m, K, V, T, thr, block, stream
+    "cusp_colsort2_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                            _i32, _i32, _vp), _TYPED),
+    # col, val, x, lo, hi, nv, rows, ptr, nh, part, y, block, stream
+    "cusp_colsort2_hub": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp,
+                           _vp, _i32, _vp), _TYPED),
+    # indptr, col, val, X, Y, m, k, K, V, thr, block, stream
+    "cusp_colsort2_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                            _i32, _i32, _vp), _TYPED),
+    # col, val, X, lo, hi, nv, rows, ptr, nh, part, Y, k, block, stream
+    "cusp_colsort2_hub_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32,
+                                _vp, _vp, _i32, _i32, _vp), _TYPED),
+    # indptr, col, val, x, y, m, n, thr, win_ptr, win_ids, W, block, stream
+    "cusp_routed_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp,
+                          _i32, _i32, _vp), _TYPED),
+    # indptr, col, val, X, Y, m, n, k, thr, win_ptr, win_ids, Ws, block, stream
+    "cusp_routed_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp,
+                          _vp, _i32, _i32, _vp), _TYPED),
     # x, y, n, block, stream
     "cusp_stream_triad": ((_vp, _vp, _i64, _i32, _vp), ("f32",)),
 }

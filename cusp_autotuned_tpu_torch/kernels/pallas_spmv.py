@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from cusp_autotuned_tpu_torch.kernels.binned import build_binned  # noqa: F401
 from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort  # noqa: F401
+from cusp_autotuned_tpu_torch.kernels.colsort2 import build_colsort2  # noqa: F401
+from cusp_autotuned_tpu_torch.kernels.routed import build_routed  # noqa: F401
 from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
 

@@ -16,19 +16,24 @@ impls:
               (the matrix's entries planned as CSR for csrc/csr_spmv.cu,
               vectors only), binned (csrc/binned_spmv.cu and, for a dense
               block x (n, k), csrc/binned_spmm.cu), colsort
-              (csrc/coo_spmv.cu, csrc/coo_spmm.cu)
+              (csrc/coo_spmv.cu, csrc/coo_spmm.cu), colsort2 (virtual rows
+              in K planes and a degree-sorted hub region,
+              csrc/colsort2_spmv.cu, csrc/colsort2_spmm.cu), routed (x
+              staged in shared memory by column window, with a colsort2
+              tail for the hub rows, csrc/routed_spmv.cu,
+              csrc/routed_spmm.cu)
 
 `cuda` stands where the JAX package has `pallas`.  For a matrix on a CUDA
 device the default impl is `cuda` (for a block x, `binned` except on dia),
 and via_dia's default `dia_impl` is `cuda`; on the CPU the defaults are the
 plain paths, as in the reference.  The SpMM kernels take no axis of their
 own: `block_size` and the plans' axes apply to both shapes of x.
-The tuning spaces mirror the JAX package's with Hopper launch axes in place
-of its TPU axes (VMEM windows, lanes, int16 packing): `block_size`,
-`threads_per_row` and `values_per_thread`.  The JAX package's rcm_dia,
-colsort2 and routed impls are not ported yet.
+The tuning spaces mirror the JAX package's with Hopper axes in place of
+its TPU axes (VMEM windows, lanes, int16 packing): `block_size`,
+`threads_per_row`, `values_per_thread`, `vrow_planes` and `vrow_len`
+(colsort2), `window` (routed).  The JAX package's rcm_dia impl is not
+ported yet.
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -39,6 +44,8 @@ import torch
 from cusp_autotuned_tpu_torch.autotune.space import TuningSpace
 from cusp_autotuned_tpu_torch.kernels.binned import build_binned
 from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort
+from cusp_autotuned_tpu_torch.kernels.colsort2 import build_colsort2
+from cusp_autotuned_tpu_torch.kernels.routed import build_routed
 from cusp_autotuned_tpu_torch.utils.config import get_config, plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, NotImplementedException,
@@ -134,7 +141,8 @@ def _build_via_dense(A, config):
 
 
 _MOVES = {"via_dia": _build_via_dia, "via_dense": _build_via_dense,
-          "binned": build_binned, "colsort": build_colsort}
+          "binned": build_binned, "colsort": build_colsort,
+          "colsort2": build_colsort2, "routed": build_routed}
 
 VARIANTS: Dict[str, Dict[str, Callable]] = {
     "dia": {"slices": _build_dia_slices, "gather": _build_dia_gather,
@@ -157,17 +165,25 @@ _DEFAULTS = {
 }
 
 # impls of each format's tuning walk
+_RAILS = ("binned", "colsort", "colsort2", "routed")
 _SPACE_IMPLS = {
-    "csr": ("segsum", "via_dia", "via_dense", "cuda", "binned", "colsort"),
-    "coo": ("segsum", "via_dia", "via_dense", "cuda", "binned", "colsort"),
-    "ell": ("gather", "via_dia", "via_dense", "cuda", "binned", "colsort"),
-    "ellr": ("rowlen", "via_dia", "via_dense", "cuda", "binned", "colsort"),
+    "csr": ("segsum", "via_dia", "via_dense", "cuda", *_RAILS),
+    "coo": ("segsum", "via_dia", "via_dense", "cuda", *_RAILS),
+    "ell": ("gather", "via_dia", "via_dense", "cuda", *_RAILS),
+    "ellr": ("rowlen", "via_dia", "via_dense", "cuda", *_RAILS),
     "hyb": ("default", "via_dia", "cuda", "binned"),
 }
 BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
+# colsort2 and routed take the two larger blocks: the K teams of a
+# colsort2 row share a block (up to 4 x 32 lanes), and a routed block's
+# rows share each staged window
+WIDE_BLOCKS = (256, 512)
 # binned: 0 = binned by length; a warp a row (32) is the `cuda` impl
 THREADS_PER_ROW = (0, 1, 4)
 VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
+VROW_PLANES = (1, 2, 4)                   # colsort2: K planes
+VROW_LENS = (8, 32)                       # colsort2: entries of a virtual row
+WINDOWS = (4096, 8192, 16384)             # routed: columns of a staged window
 
 
 def default_config(A, x=None) -> Dict[str, Any]:
@@ -189,7 +205,10 @@ def tuning_space(A) -> TuningSpace:
     inner DIA impl of via_dia; `block_size` the threads per block of every
     CUDA launch; `threads_per_row` binned's lanes per row (not 32: a warp a
     row is csrc/csr_spmv.cu, the `cuda` impl); `values_per_thread`
-    colsort's chunk.  Constraints pin each axis to 0 or
+    colsort's chunk; `vrow_planes` and `vrow_len` colsort2's planes and
+    virtual-row length, `window` routed's staged columns, both on blocks
+    of 256 or 512 threads (45 configurations for csr and coo).
+    Constraints pin each axis to 0 or
     'none' where it does not apply, as the fork pins PREFETCH_TYPE.  The
     opt-in `value_dtype` axis (CUSP_TORCH_TUNE_BF16) adds bf16 storage to
     the DIA kernels."""
@@ -217,14 +236,27 @@ def tuning_space(A) -> TuningSpace:
                          lambda i, d: (d == "none") == (i != "via_dia"))
     space.add_constraint(
         ("impl", "dia_impl", "block_size"),
-        lambda i, d, b: (b > 0) == (i in ("cuda", "binned", "colsort")
-                                    or d == "cuda"))
+        lambda i, d, b: (b > 0) == (i in ("cuda", *_RAILS) or d == "cuda"))
+    space.add_constraint(("impl", "block_size"),
+                         lambda i, b: i not in ("colsort2", "routed")
+                         or b in WIDE_BLOCKS)
     space.add_constraint(("impl", "threads_per_row"),
                          lambda i, t: t == 0 or i == "binned")
     if "colsort" in impls:
         space.add_parameter("values_per_thread", (0, *VALUES_PER_THREAD))
         space.add_constraint(("impl", "values_per_thread"),
                              lambda i, v: (v > 0) == (i == "colsort"))
+    if "colsort2" in impls:
+        space.add_parameter("vrow_planes", (0, *VROW_PLANES))
+        space.add_parameter("vrow_len", (0, *VROW_LENS))
+        space.add_constraint(("impl", "vrow_planes"),
+                             lambda i, k: (k > 0) == (i == "colsort2"))
+        space.add_constraint(("impl", "vrow_len"),
+                             lambda i, v: (v > 0) == (i == "colsort2"))
+    if "routed" in impls:
+        space.add_parameter("window", (0, *WINDOWS))
+        space.add_constraint(("impl", "window"),
+                             lambda i, w: (w > 0) == (i == "routed"))
     if search_bf16:
         space.add_parameter("value_dtype", ("none", "bfloat16"))
         space.add_constraint(("impl", "value_dtype"),

@@ -115,14 +115,17 @@ def test_space_sizes_and_axes():
     A = gallery.poisson5pt(8, 8, format="csr", device="cpu")
     sizes = {f: len(configurations_for(convert(A, f)))
              for f in ("dia", "csr", "coo", "ell", "ellr", "hyb")}
-    assert sizes == {"dia": 5, "csr": 27, "coo": 27, "ell": 27, "ellr": 27,
+    assert sizes == {"dia": 5, "csr": 45, "coo": 45, "ell": 45, "ellr": 45,
                      "hyb": 17}
     for cfg in configurations_for(A):
         assert (cfg["threads_per_row"] == 0) or cfg["impl"] == "binned"
         assert cfg["threads_per_row"] != 32      # a warp a row is `cuda`
         assert (cfg["values_per_thread"] > 0) == (cfg["impl"] == "colsort")
+        assert (cfg["vrow_planes"] > 0) == (cfg["impl"] == "colsort2")
+        assert (cfg["window"] > 0) == (cfg["impl"] == "routed")
         assert (cfg["block_size"] > 0) == (
-            cfg["impl"] in ("cuda", "binned", "colsort") or cfg["dia_impl"] == "cuda")
+            cfg["impl"] in ("cuda", "binned", "colsort", "colsort2", "routed")
+            or cfg["dia_impl"] == "cuda")
     assert {c["impl"] for c in configurations_for(convert(A, "hyb"))} == \
         {"default", "via_dia", "cuda", "binned"}
 
@@ -351,7 +354,7 @@ def test_tuned_operator_cg_matches_jax_iterations(global_tuner):
     b = np.random.RandomState(0).rand(J.num_rows).astype(np.float32)
     _, mj = jsolvers.cg(J, jnp.asarray(b), monitor=JaxMonitor(jnp.asarray(b), 2000, 1e-5))
     op = autotune.tuned_operator(port_of(J), tune_first=True)
-    assert len(global_tuner.results[matrix_signature(port_of(J))]) == 27
+    assert len(global_tuner.results[matrix_signature(port_of(J))]) == 45
     bt = torch.from_numpy(b)
     _, mp = solvers.cg(op, bt, monitor=Monitor(bt, 2000, 1e-5))
     assert mp.iteration_count() == mj.iteration_count() == 73

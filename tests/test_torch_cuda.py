@@ -10,6 +10,7 @@ a GPU machine without them:
 the reference's own for its DIA, CSR and lane-binned kernels
 (tests/test_pallas.py:22, :97 and :161)."""
 
+import functools
 import time
 
 import numpy as np
@@ -27,14 +28,21 @@ from cusp_autotuned_tpu_torch.kernels.binned import (
 from cusp_autotuned_tpu_torch.kernels.colsort import (
     build_colsort, coo_spmm, coo_spmv, coo_spmv_plain,
 )
+from cusp_autotuned_tpu_torch.kernels.colsort2 import (
+    build_colsort2, colsort2_hub, colsort2_hub_spmm, colsort2_spmm, colsort2_spmv,
+    colsort2_spmv_plain,
+)
 from cusp_autotuned_tpu_torch.kernels.csr import build_csr, csr_spmv, csr_spmv_plain
 from cusp_autotuned_tpu_torch.kernels.dia import (
     build_dia, dia_spmm, dia_spmv, dia_spmv_plain,
 )
+from cusp_autotuned_tpu_torch.kernels.routed import (
+    build_routed, routed_spmm, routed_spmv, routed_spmv_plain,
+)
 from cusp_autotuned_tpu_torch.operators import planned_operator
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 from cusp_autotuned_tpu_torch.utils.exceptions import (
-    InvalidInputException, NotImplementedException,
+    FormatConversionException, InvalidInputException, NotImplementedException,
 )
 
 pytestmark = pytest.mark.cuda
@@ -278,7 +286,7 @@ def test_small_walk_on_card(cuda_device):
             f"{r.configuration}: {r.status} {r.error}"
         assert not r.is_valid() or 0 < r.duration_ms < 1e3
     ok = {r.configuration["impl"] for r in results if r.is_valid()}
-    assert {"cuda", "binned", "colsort", "segsum"} <= ok
+    assert {"cuda", "binned", "colsort", "colsort2", "routed", "segsum"} <= ok
 
 
 def test_tuner_times_the_device_not_the_host(cuda_device):
@@ -408,7 +416,7 @@ def test_block_defaults_and_walk_on_card(cuda_device):
             ok = (ResultStatus.CompilationFailed,)
         assert r.status in ok, f"{r.configuration}: {r.status} {r.error}"
     valid = {r.configuration["impl"] for r in results if r.is_valid()}
-    assert {"binned", "colsort", "segsum"} <= valid
+    assert {"binned", "colsort", "colsort2", "routed", "segsum"} <= valid
     assert binned_spmm.launches > before[0] and coo_spmm.launches > before[1]
 
 
@@ -425,3 +433,150 @@ def test_lobpcg_kernel_operator_matches_plain_on_card(cuda_device):
     (lk, ik, nk), (lp, ip, np_) = out["binned"], out["segsum"]
     assert abs(lk - exact) / exact < 1e-4 and abs(lp - exact) / exact < 1e-4
     assert nk >= ik and np_ == 0
+
+
+# -- the colsort2 and routed rails ---------------------------------------------
+
+@functools.cache
+def _scattered_with_band_host(seed=7):
+    rng = np.random.RandomState(seed)
+    m, n = 20000, 50000
+    rows = np.repeat(np.arange(m), 8)
+    S = (sp.coo_matrix((rng.uniform(-1, 1, rows.size),
+                        (rows, rng.randint(0, n, rows.size))), shape=(m, n))
+         + sp.diags([rng.uniform(-1, 1, m) for _ in range(41)],
+                    list(range(-20, 21)), shape=(m, n))).tocsr()
+    col, val = S.indices.copy(), S.data.copy()
+    for r in range(0, m, 7):                   # unsort some rows' columns
+        lo, hi = S.indptr[r], S.indptr[r + 1]
+        perm = lo + rng.permutation(hi - lo)
+        col[lo:hi], val[lo:hi] = col[perm], val[perm]
+    return S.indptr, col, val, (m, n)
+
+
+def _scattered_with_band():
+    """20000 x 50000: 8 scattered entries a row, whose windows a routed row
+    block reads from x directly, plus a band of 41 entries a row, whose
+    windows it stages; the columns of every seventh row unsorted."""
+    from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
+    indptr, col, val, shape = _scattered_with_band_host()
+    return csr_matrix(indptr, col, val, shape, dtype=torch.float32, device="cuda")
+
+
+def _rail_case(fn, plain, x, counters):
+    before = [c.launches for c in counters]
+    y = fn(x)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    torch.testing.assert_close(y, plain(x), **TOL["rails"])
+    for _ in range(2):
+        torch.testing.assert_close(fn(x), y, rtol=0, atol=0)    # deterministic
+    return launched
+
+
+@pytest.mark.parametrize("K,V,hub_cap,block", [(1, 8, 0, 256), (2, 32, 0, 256),
+                                               (4, 8, 64, 512), (4, 32, 0, 128),
+                                               (8, 8, 0, 256), (2, 0, 1, 256)])
+def test_colsort2_kernel_matches_plain_on_card(cuda_device, K, V, hub_cap, block):
+    """hub_cap 1 makes every row of two or more entries a hub row; the
+    4096-entry row spans 32 hub virtual rows."""
+    A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_colsort2(A, {"vrow_planes": K, "vrow_len": V, "hub_cap": hub_cap,
+                            "block_size": block})
+    a, st = fn.planned_arrays, fn.plan_stats
+    assert st["hub_rows"] > 0
+    launched = _rail_case(
+        fn, lambda x: colsort2_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
+                                          x, A.num_rows, K, st["vrow_len"], st["thr"]),
+        _x(A.num_cols, cuda_device), (colsort2_spmv, colsort2_hub))
+    assert launched == [1, 1]
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 40])
+@pytest.mark.parametrize("K,V,hub_cap,block", [(1, 8, 0, 256), (4, 32, 64, 512),
+                                               (2, 0, 1, 256)])
+def test_colsort2_spmm_kernel_matches_plain_on_card(cuda_device, K, V, hub_cap,
+                                                    block, k):
+    A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_colsort2(A, {"vrow_planes": K, "vrow_len": V, "hub_cap": hub_cap,
+                            "block_size": block})
+    a, st = fn.planned_arrays, fn.plan_stats
+    launched = _rail_case(
+        fn, lambda X: colsort2_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
+                                          X, A.num_rows, K, st["vrow_len"], st["thr"]),
+        _block(A.num_cols, k, cuda_device), (colsort2_spmm, colsort2_hub_spmm))
+    assert launched == [1, 1]
+
+
+@pytest.mark.parametrize("window", [4096, 8192, 16384])
+@pytest.mark.parametrize("block", [256, 512])
+@pytest.mark.parametrize("matrix", ["rails", "scattered"])
+def test_routed_kernel_matches_plain_on_card(cuda_device, matrix, block, window):
+    """The rails matrix has a tail (its 4096- and 1500-entry rows); the
+    scattered one mixes staged and direct windows, with unsorted rows."""
+    A = (from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+         if matrix == "rails" else _scattered_with_band())
+    fn = build_routed(A, {"window": window, "block_size": block})
+    a, st = fn.planned_arrays, fn.plan_stats
+    assert st["staged_windows"] > 0 and (st["tail"] > 0) == (matrix == "rails")
+    launched = _rail_case(
+        fn, lambda x: routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
+                                        x, A.num_rows, st["hub_cap"]),
+        _x(A.num_cols, cuda_device), (routed_spmv, colsort2_hub))
+    assert launched == [1, int(matrix == "rails")]
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 40])
+@pytest.mark.parametrize("window,block", [(4096, 256), (16384, 512)])
+@pytest.mark.parametrize("matrix", ["rails", "scattered"])
+def test_routed_spmm_kernel_matches_plain_on_card(cuda_device, matrix, window,
+                                                  block, k):
+    A = (from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+         if matrix == "rails" else _scattered_with_band())
+    fn = build_routed(A, {"window": window, "block_size": block})
+    a, st = fn.planned_arrays, fn.plan_stats
+    assert st["staged_spmm_windows"] > 0
+    launched = _rail_case(
+        fn, lambda X: routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
+                                        X, A.num_rows, st["hub_cap"]),
+        _block(A.num_cols, k, cuda_device), (routed_spmm, colsort2_hub_spmm))
+    assert launched == [1, int(matrix == "rails")]
+
+
+@pytest.mark.parametrize("impl", ["colsort2", "routed"])
+@pytest.mark.parametrize("store", ["bfloat16", "float64"])
+@pytest.mark.parametrize("k", [0, 5])
+def test_new_rails_other_storage_on_card(cuda_device, impl, store, k):
+    dtype = torch.float64 if store == "float64" else torch.float32
+    A = from_scipy(_rails_matrix(4), "csr", dtype=dtype, device=cuda_device)
+    cfg = {"impl": impl, "block_size": 256}
+    if store == "bfloat16":
+        cfg["value_dtype"] = "bfloat16"
+    x = _x(A.num_cols, cuda_device, dtype) if k == 0 else \
+        _block(A.num_cols, k, cuda_device, dtype)
+    y = build_spmv(A, cfg)(x)
+    assert y.dtype == dtype
+    ref = reference_spmv(A, x)
+    tol = 2e-2 if store == "bfloat16" else 1e-10
+    assert np.linalg.norm(y.cpu().numpy() - ref) / np.linalg.norm(ref) < tol
+
+
+@pytest.mark.parametrize("impl", ["colsort2", "routed"])
+def test_new_rail_wrappers_raise_on_card(cuda_device, impl):
+    A = gallery.poisson5pt(20, 10, format="csr", device=cuda_device)
+    fn = planned_operator(A, {"impl": impl, "block_size": 256})
+    counters = (colsort2_spmv, colsort2_spmm, colsort2_hub, colsort2_hub_spmm,
+                routed_spmv, routed_spmm)
+    before = [c.launches for c in counters]
+    x = _x(A.num_cols, cuda_device)
+    X = torch.stack([x, x], 1)
+    with pytest.raises(NotImplementedException):
+        fn(X[..., None])
+    for bad in (x.double(), X[:, 0], x.cpu(), X.T.contiguous().T, X.double(),
+                X.cpu(), X[:-1]):
+        with pytest.raises(InvalidInputException):
+            fn(bad)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(FormatConversionException):
+        build_spmv(from_scipy(sp.coo_matrix((6, 7)), "csr", dtype=torch.float32,
+                              device=cuda_device), {"impl": impl})

@@ -24,6 +24,7 @@ SLICE_MODULES = (
     "autotune.result", "autotune.search", "autotune.space", "autotune.tuner",
     "autotune.calibrate", "formats.dense", "eigen.arnoldi", "eigen.gram_schmidt",
     "eigen.lanczos", "eigen.lobpcg", "eigen.spectral_radius",
+    "gallery.poisson", "gallery.suite", "kernels.colsort2", "kernels.routed",
 )
 
 

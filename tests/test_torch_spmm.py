@@ -68,22 +68,25 @@ def _powerlaw(n, nnz, seed=0):
 
 # -- the three kernels' plain versions against the Pallas kernels -------------
 
-# name -> (JAX matrix, JAX builder, its config, k), as tests/test_pallas.py
-# builds them (:376 DIA SpMM, :250 binned SpMM, :473 colsort SpMM)
+# name -> (JAX matrix, JAX builder, its config, k): the configurations of
+# tests/test_pallas.py (:376 DIA SpMM, :250 binned SpMM, :473 colsort SpMM)
+# on the smallest shapes that still reach each Pallas SpMM site (k = 100 >
+# 64 for DIA; rows above hub_cap 10 for colsort's hub kernel), since every
+# interpret-mode call costs time on one CPU worker
 PALLAS = {
     "dia_poisson_k100": (
-        lambda: jgallery.poisson5pt(40, 45, format="dia", dtype=np.float32),
+        lambda: jgallery.poisson5pt(12, 15, format="dia", dtype=np.float32),
         jax_dia, {"block_rows": 1024}, 100),
     "binned_poisson9_k3": (
-        lambda: jax_from_scipy(jgallery.poisson9pt(30, 30, format="csr")
+        lambda: jax_from_scipy(jgallery.poisson9pt(12, 12, format="csr")
                                .to_scipy().tocoo(), "csr"),
         jax_binned, dict(block_entries=2048, col_window=1024, row_window=256), 3),
     "binned_poisson9_k16": (
-        lambda: jax_from_scipy(jgallery.poisson9pt(30, 30, format="csr")
+        lambda: jax_from_scipy(jgallery.poisson9pt(12, 12, format="csr")
                                .to_scipy().tocoo(), "csr"),
         jax_binned, dict(block_entries=2048, col_window=1024, row_window=256), 16),
     "colsort_powerlaw_k3": (
-        lambda: jax_from_scipy(_powerlaw(700, 7000, seed=14).tocoo(), "csr"),
+        lambda: jax_from_scipy(_powerlaw(200, 2000, seed=14).tocoo(), "csr"),
         jax_colsort, dict(block_entries=2048, col_window=2048, row_window=512,
                           hub_cap=10), 3),
 }
