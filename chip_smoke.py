@@ -2,15 +2,29 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Four main paths, each driven with every kernel's launch count set to 0
+Five main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
             (1,000,000 unknowns), a via_dia planned operator, CG under a
             Monitor at rel-tol 1e-5 with at most 2000 iterations, then the
             true residual b - A x through the default CSR operator;
-  autotune  the tuner's path: calibrate() (the stream triad and the
-            gather/segment-sum probes), the exhaustive validated walk
+  amg       smoothed-aggregation AMG-CG, the JAX package's
+            benchmarks/amg_endtoend.py in the port's idiom: calibrate() (the
+            cost model's rates, the take probe's among them),
+            gallery.poisson5pt(1000, 1000) CSR f32,
+            precond.smoothed_aggregation(A, spmv_config={}) with the cost
+            model's pick for every level's A, R and P, one V-cycle timed,
+            autotune.tuned_operator(A) with no walk (the model's pick), and
+            CG under a Monitor at rel-tol 1e-5 with at most 2000 iterations,
+            its true residual through the CSR kernel and its iterations
+            against plain CG's; then smoothed_aggregation(A) with its
+            defaults on poisson5pt 150x150 f64 (rel-tol 1e-10, the JAX
+            package's iteration count), and an unstructured hierarchy,
+            poisson7pt 100x100x100 f32 with spmv_config={};
+  autotune  the tuner's path: calibrate() (the stream triad, the
+            gather/segment-sum probes and the take probe), the exhaustive
+            validated walk
             (tune) on poisson5pt 1000x1000 CSR and on a skewed 1M-row CSR,
             the cg.cu solve through tuned_operator (timed in turns with the
             via_dia solve), the dynamic multiply
@@ -62,11 +76,19 @@ Phases:
   colsort2_spmm, routed_spmm
                the same at k = 16 on the four matrices, and on the JAX
                package's SpMM test shapes of the two rails
+  take_probe   the take probe (both instantiations: x staged in shared
+               memory, x read through L1/L2) against its plain version at
+               64 tiles and 2, 3 and 18 passes, rtol 1e-6, then timed at
+               4096 tiles and 18 passes, and the two-point tile_take_ns
   cg           the cg.cu path; then a 100x100 solve through the kernel
                operator against one through the plain operator
+  amg          the amg path
   autotune     the autotune path
   spmm         the spmm path
   suite        the suite path
+  model        for each matrix the autotune and suite paths walk, the cost
+               model's pick (recommend_config) against the walk's leader,
+               both timed again side by side as the tuner times them
 
 Every SpMV and SpMM line gives the kernel's time per call (CUDA events
 over back-to-back calls) and device time (torch.profiler, every kernel of
@@ -109,7 +131,7 @@ SPMV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
                 "stream_triad")
 SPMM_KERNELS = ("dia_spmm", "binned_spmm", "coo_spmm")
 SUITE_KERNELS = ("colsort2_spmv", "routed_spmv", "colsort2_spmm", "routed_spmm")
-KERNELS = SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS
+KERNELS = SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS + ("take_probe",)
 # the kernels each wrapper launches, each once a call (the COO wrappers'
 # torch.zeros adds a fill kernel, which is PyTorch's own)
 WRAPPER_KERNELS = {
@@ -122,6 +144,7 @@ WRAPPER_KERNELS = {
     "colsort2_spmv": ("colsort2_main_kernel",),
     "colsort2_spmm": ("colsort2_spmm_main_kernel",),
     "routed_spmv": ("routed_spmv_kernel",), "routed_spmm": ("routed_spmm_kernel",),
+    "take_probe": ("take_probe_kernel",),
     # the hub pair of a colsort2 plan with hub rows, and routed's tail
     "colsort2_hub": ("colsort2_hub_kernel", "colsort2_hub_fold_kernel"),
     "colsort2_hub_spmm": ("colsort2_spmm_hub_kernel", "colsort2_spmm_hub_fold_kernel"),
@@ -131,6 +154,13 @@ WRAPPER_KERNELS = {
 COLSORT2_CONFIG = {"vrow_planes": 2, "vrow_len": 8, "block_size": 256}
 ROUTED_CONFIG = {"window": 4096, "block_size": 256}
 SUITE_SCALE = 2.0
+TAKE_RTOL = 1e-6                     # tests/test_calibrate.py:117
+JAX_AMG_150_ITERATIONS = 20          # the JAX package's AMG-CG count at 150x150
+                                     # (bench.py's amg_cg_iters configuration;
+                                     # tests/test_torch_amg.py holds the port
+                                     # to it on the CPU)
+MODEL_RATIO = 1.25                   # the model's pick against the walk leader
+MODEL_LINES = []                     # (matrix, pick, pick ms, leader, leader ms)
 EARLIER_VIA_DIA_MS = "0.36-0.70"     # PERF.md §5, H100 80GB HBM3, 700 W
 
 
@@ -754,7 +784,7 @@ def reset_counts():
 
 
 def counters():
-    from cusp_autotuned_tpu_torch.autotune.calibrate import stream_triad
+    from cusp_autotuned_tpu_torch.autotune.calibrate import stream_triad, take_probe
     from cusp_autotuned_tpu_torch.kernels import colsort2, routed
     from cusp_autotuned_tpu_torch.kernels.binned import binned_spmm, binned_spmv
     from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmm, coo_spmv
@@ -768,7 +798,8 @@ def counters():
             "colsort2_spmm": colsort2.colsort2_spmm,
             "colsort2_hub": colsort2.colsort2_hub,
             "colsort2_hub_spmm": colsort2.colsort2_hub_spmm,
-            "routed_spmv": routed.routed_spmv, "routed_spmm": routed.routed_spmm}
+            "routed_spmv": routed.routed_spmv, "routed_spmm": routed.routed_spmm,
+            "take_probe": take_probe}
 
 
 def read_counts():
@@ -933,7 +964,8 @@ def autotune_phase(device, matrices, b, viadia_its):
     consts = calibrate.calibrate(device)
     log(f"autotune: calibrate() {consts} in {time.perf_counter() - t0:.1f} s")
     for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
-        walk(name, matrices[name], seeded_x(matrices[name].num_cols, 6, device))
+        x = seeded_x(matrices[name].num_cols, 6, device)
+        model_line(name, matrices[name], x, walk(name, matrices[name], x))
 
     # the tuned solve against the via_dia one in turns (via_dia, tuned,
     # tuned, via_dia): the host's share of a CG iteration drifts within a
@@ -1181,8 +1213,9 @@ def suite_phase(device):
     best = autotune.get_tuner().best_configuration
     for name, A in mats.items():
         x = seeded_x(A.num_cols, 13, device)
-        rail_bests(name, walk(f"suite {name}", A, x,
-                              need=("colsort2", "binned", "colsort")))
+        results = walk(f"suite {name}", A, x, need=("colsort2", "binned", "colsort"))
+        rail_bests(name, results)
+        model_line(name, A, x, results)
         y_plain, scale = plain_product(A, x)
         err = check_block(f"tuned_operator({name})", autotune.tuned_operator(A, x)(x),
                           y_plain, scale, "suite")
@@ -1200,6 +1233,253 @@ def suite_phase(device):
         f"err {err:.3e} against the plain product")
     launches = read_counts()
     log(f"suite: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return launches
+
+
+def shared_memory_tb_per_s():
+    """The SMs' shared-memory rate at the card's top SM clock: 32 banks of
+    4 bytes a clock on each of its SMs (the Hopper tuning guide's figure),
+    in TB/s; None where nvidia-smi does not give the clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.strip()
+    try:
+        mhz = float(out.splitlines()[0])
+    except (ValueError, IndexError):
+        return None, out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6 / 1e12, f"{sms} SMs at {mhz:.0f} MHz"
+
+
+def take_probe_phase(device, triad_gbps):
+    """The take probe against its plain version, timed at full size; returns
+    the kernel's record (the instantiation that stages x in shared memory,
+    18 passes over 4096 tiles) and the two-point tile times."""
+    from cusp_autotuned_tpu_torch.autotune import calibrate
+
+    lane = calibrate.LANE
+    idx = calibrate.take_probe_planes().to(device)
+    rng = np.random.RandomState(0)
+    x64 = torch.from_numpy(rng.randn(64 * lane, lane).astype(np.float32)).to(device)
+    log(f"take_probe: kernel vs plain on the card at 64 tiles, rtol {TAKE_RTOL}: ")
+    for from_shared in (True, False):
+        for passes in (2, 3, 18):
+            y = calibrate.take_probe(x64, idx, passes, from_shared)
+            yp = calibrate.take_probe_plain(x64, idx, passes)
+            torch.cuda.synchronize()
+            err = float((y - yp).abs().max())
+            ok = bool(((y - yp).abs() <= TAKE_RTOL * yp.abs()).all())
+            log(f"  {'shared' if from_shared else 'global'} x, {passes} passes: "
+                f"max abs err {err:.3e}")
+            if not ok:
+                raise RuntimeError(f"take_probe: kernel differs from plain version "
+                                   f"at {passes} passes (max abs err {err:.3e})")
+    tiles, passes = calibrate.TAKE_TILES, max(calibrate.TAKE_PASSES)
+    x = torch.randn(tiles * lane, lane, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+    n = x.numel()
+    # bytes: x read once, the output written once, the planes read once;
+    # operations: a product and a sum for each of passes * n gathers
+    useful = 8 * n + passes * lane * lane * 4
+    shared_tb, clock = shared_memory_tb_per_s()
+    floor = (f"{passes * n * 4 / (shared_tb * 1e12) * 1e3:.4f} ms ({clock}, "
+             f"{shared_tb:.1f} TB/s)" if shared_tb else f"not known ({clock})")
+    log(f"take_probe: {tiles} tiles, {passes} passes; shared-memory gather floor "
+        f"(passes x {n} x 4 B over the SMs' shared-memory rate): {floor}")
+    records = {}
+    for from_shared in (True, False):
+        name = f"take_probe {'shared' if from_shared else 'global'} x"
+        records[from_shared] = compare(
+            name, lambda: calibrate.take_probe(x, idx, passes, from_shared),
+            lambda: calibrate.take_probe_plain(x, idx, passes), TAKE_RTOL, 0.0,
+            useful, 2 * passes * n, triad_gbps, samples=3, per_sample=3)
+    ns = {k: calibrate.tile_take_ns(device, from_shared=k) for k in (True, False)}
+    log(f"take_probe: tile_take_ns (two points, 2 and {passes} passes, {tiles} "
+        f"tiles): shared x {ns[True]:.4f} ns, global x {ns[False]:.4f} ns a "
+        f"(128, 128) tile pass = {1e3 * ns[True] / (lane * lane):.3f} and "
+        f"{1e3 * ns[False] / (lane * lane):.3f} ps a gathered element")
+    return records[True]
+
+
+def model_line(name, A, x, results):
+    """The cost model's pick for A against the leader of the walk `results`,
+    both timed again side by side (pick, leader, leader, pick) as the tuner
+    times a configuration; recorded in MODEL_LINES."""
+    from cusp_autotuned_tpu_torch.autotune import Tuner
+    from cusp_autotuned_tpu_torch.autotune.cost_model import predict, recommend_config
+    from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
+
+    pick, us = recommend_config(A, x)
+    lead = min((r for r in results if r.is_valid()), key=lambda r: r.duration_ms)
+    fns = {"pick": build_spmv(A, pick), "leader": build_spmv(A, lead.configuration)}
+    t = Tuner()
+    times = {"pick": [], "leader": []}
+    for k in ("pick", "leader", "leader", "pick"):
+        times[k].append(t._time_graph(fns[k], x))
+    pick_ms, lead_ms = (statistics.median(times[k]) for k in ("pick", "leader"))
+    priced = {k: round(v["us"], 2) for k, v in predict(A, x).items() if "us" in v}
+    MODEL_LINES.append((name, pick, pick_ms, lead.configuration, lead_ms))
+    log(f"model: {name}: pick {pick} (predicted {us:.2f} us) {pick_ms:.4f} ms; "
+        f"walk leader {label(lead.configuration)} {lead.duration_ms:.4f} ms in the "
+        f"walk, {lead_ms:.4f} ms now; pick / leader {pick_ms / lead_ms:.3f}; "
+        f"predicted us {priced}")
+
+
+def launch_calls(fn, calls):
+    """(device kernels, host kernel-launch calls) per call of fn, from
+    torch.profiler: the device records (some may be dropped, PERF.md §7)
+    and the runtime's launch calls on the host."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    device = host = 0
+    device_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep"):
+            device += e.count
+            device_ms += e.self_device_time_total / 1e3
+        elif e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                       "cudaGraphLaunch"):
+            host += e.count
+    return device_ms / calls, device / calls, host / calls
+
+
+def describe_levels(M):
+    for i, lvl in enumerate(M.levels):
+        log(f"    level {i}: {lvl.A.num_rows} rows, {lvl.A.num_entries} entries; "
+            f"A {lvl.apply_op.impl if lvl.Aop is not None else 'container'}, "
+            f"R {lvl.restrict_op.impl if lvl.Rop is not None else 'container'}, "
+            f"P {lvl.prolong_op.impl if lvl.Pop is not None else 'container'}")
+    log(f"    coarse: {M.coarse.n} rows (dense inverse); operator complexity "
+        f"{M.operator_complexity():.3f}, grid complexity {M.grid_complexity():.3f}")
+
+
+def amg_phase(device):
+    """The amg path; returns its launch counts.  Its right-hand side is
+    b = A x_true for a seeded x_true of entries in [0, 1): for the cg.cu
+    path's b (entries in [0, 1)) the f32 solution is large, and its
+    rounding alone keeps the true residual far above the bar of 1e-4 (the
+    cg phase prints it), however well CG converges."""
+    from cusp_autotuned_tpu_torch import autotune, gallery, solvers
+    from cusp_autotuned_tpu_torch.autotune import calibrate
+    from cusp_autotuned_tpu_torch.autotune.tuner import matrix_signature
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    from cusp_autotuned_tpu_torch.ops import blas
+    from cusp_autotuned_tpu_torch.precond import smoothed_aggregation
+    from cusp_autotuned_tpu_torch.solvers.cg import CHECK_EVERY
+    from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
+
+    A = gallery.poisson5pt(1000, 1000, format="csr", device=device)
+    n = A.num_rows
+    x_true = torch.as_tensor(np.random.RandomState(0).rand(n), dtype=torch.float32,
+                             device=device)
+    b = planned_operator(A, {"impl": "segsum"})(x_true)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+    consts = calibrate.calibrate(device)
+    log(f"amg: calibrate() {consts}")
+    t0 = time.perf_counter()
+    M = smoothed_aggregation(A, spmv_config={})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"amg: smoothed_aggregation(poisson5pt 1000x1000 f32, spmv_config={{}}) "
+        f"in {setup_s:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         M.setup_s.items()) + " s):")
+    describe_levels(M)
+    if M.levels[0].Aop is None or M.levels[0].Aop.impl != "via_dia":
+        raise RuntimeError("amg: the fine level's A is not on the DIA kernel")
+    v = M(b)
+    if v.shape != b.shape or not torch.isfinite(v).all():
+        raise RuntimeError("amg: the V-cycle's output is not finite or not of shape (n,)")
+    cycle_ms = median_ms(lambda: M(b), samples=5, per_sample=10)
+    cycle_dev, kernels, launches = launch_calls(lambda: M(b), 10)
+    log(f"amg: one V-cycle {cycle_ms:.4f} ms a call (CUDA events, 10 back to "
+        f"back), {cycle_dev:.4f} ms device ({100 * cycle_dev / cycle_ms:.1f} % "
+        f"busy), {kernels:.1f} kernels recorded and {launches:.1f} launch calls a "
+        f"cycle")
+    if autotune.get_tuner().results.get(matrix_signature(A)):
+        raise RuntimeError("amg: the tuner holds results for A; the pick below "
+                           "would not be the model's")
+    op = autotune.tuned_operator(A)
+    log(f"amg: tuned_operator(A) with no walk: {autotune.get_tuner().best_configuration(A)}"
+        f" ({op.impl})")
+    solvers.cg(op, b, M=M, monitor=Monitor(b, 3, 1e-5))        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, mon = solvers.cg(op, b, M=M, monitor=Monitor(b, 2000, 1e-5))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    its = mon.iteration_count()
+    true_res = float(blas.nrm2(b - planned_operator(A)(x)) / blas.nrm2(b))
+    err = float(blas.nrm2(x - x_true) / blas.nrm2(x_true))
+    _, mon_plain, plain_s = solve(op, b)
+    plain_its = mon_plain.iteration_count()
+    # cg reads its stop flag once a block of CHECK_EVERY iterations and
+    # masks the rest of the block: those passes run too
+    passes = max(1, -(-its // CHECK_EVERY)) * CHECK_EVERY
+    log(f"amg: AMG-CG (rtol 1e-5, limit 2000): {its} iterations, converged "
+        f"{mon.converged()}, relative residual "
+        f"{mon.residual_norm() / mon.b_norm:.3e}, true {true_res:.3e} (CSR "
+        f"kernel), error against x_true {err:.3e}; solve {solve_s:.3f} s, "
+        f"{1e3 * solve_s / max(its, 1):.4f} ms/iteration, "
+        f"{1e3 * solve_s / passes:.4f} ms a loop pass ({passes} passes, the "
+        f"masked ones included); plain CG on the same b {plain_its} "
+        f"iterations, {plain_s:.3f} s, {1e3 * plain_s / max(plain_its, 1):.4f} "
+        f"ms/iteration")
+    if not (mon.converged() and torch.isfinite(x).all() and true_res < 1e-4
+            and its < plain_its / 2):
+        raise RuntimeError(f"amg: AMG-CG took {its} iterations (plain CG "
+                           f"{plain_its}), true residual {true_res}")
+    del M, op, x
+
+    # the defaults, as bench.py's amg_cg_iters row runs them
+    A150 = gallery.poisson5pt(150, 150, format="csr", dtype=torch.float64,
+                              device=device)
+    b150 = torch.as_tensor(1.01 * np.random.RandomState(7).rand(A150.num_rows)
+                           + 0.5, device=device)
+    M150 = smoothed_aggregation(A150)
+    x150, mon150 = solvers.cg(A150, b150, M=M150, monitor=Monitor(b150, 100, 1e-10))
+    its150 = mon150.iteration_count()
+    log(f"amg: poisson5pt 150x150 f64, smoothed_aggregation(A) defaults, rtol "
+        f"1e-10: {its150} iterations (the JAX package: {JAX_AMG_150_ITERATIONS}), "
+        f"converged {mon150.converged()}")
+    if its150 != JAX_AMG_150_ITERATIONS or not mon150.converged():
+        raise RuntimeError(f"amg: the 150x150 solve took {its150} iterations, "
+                           f"not {JAX_AMG_150_ITERATIONS}")
+
+    # an unstructured hierarchy: 3-D, so no raster grid, standard aggregation
+    A7 = gallery.poisson7pt(100, 100, 100, format="csr", device=device)
+    x7_true = torch.as_tensor(np.random.RandomState(1).rand(A7.num_rows),
+                              dtype=torch.float32, device=device)
+    b7 = planned_operator(A7, {"impl": "segsum"})(x7_true)
+    t0 = time.perf_counter()
+    M7 = smoothed_aggregation(A7, spmv_config={})
+    torch.cuda.synchronize()
+    log(f"amg: smoothed_aggregation(poisson7pt 100x100x100 f32, spmv_config={{}}) "
+        f"in {time.perf_counter() - t0:.2f} s (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in M7.setup_s.items()) + " s):")
+    describe_levels(M7)
+    op7 = autotune.tuned_operator(A7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x7, mon7 = solvers.cg(op7, b7, M=M7, monitor=Monitor(b7, 2000, 1e-5))
+    torch.cuda.synchronize()
+    solve7 = time.perf_counter() - t0
+    its7 = mon7.iteration_count()
+    true7 = float(blas.nrm2(b7 - planned_operator(A7)(x7)) / blas.nrm2(b7))
+    log(f"amg: poisson7pt AMG-CG through {op7.impl}: {its7} iterations, converged "
+        f"{mon7.converged()}, true relative residual {true7:.3e}, "
+        f"{1e3 * solve7 / max(its7, 1):.4f} ms/iteration")
+    if not (mon7.converged() and true7 < 1e-4):
+        raise RuntimeError("amg: the poisson7pt AMG-CG did not converge")
+    launches = read_counts()
+    log(f"amg: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
     return launches
 
 
@@ -1238,23 +1518,34 @@ def main():
     records["dia_spmm"] = dia_spmm_phase(device, triad_gbps)
     records.update(rails_spmm_phase(device, triad_gbps, matrices))
     records.update(new_rails_phase(device, triad_gbps, matrices))
+    records["take_probe"] = take_probe_phase(device, triad_gbps)
     for name in ("uniform random 1M x 1M", "power-law 1M rows"):
         del matrices[name]
 
     cg_launches, b, viadia_its = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
+    amg_launches = amg_phase(device)
     tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its)
     spmm_launches = spmm_phase(device, matrices)
     del matrices
     suite_launches = suite_phase(device)
-    log(f"launches: cg.cu path {cg_launches}; autotune path {tuned_launches}; "
-        f"spmm path {spmm_launches}; suite path {suite_launches}")
+    log(f"launches: cg.cu path {cg_launches}; amg path {amg_launches}; autotune "
+        f"path {tuned_launches}; spmm path {spmm_launches}; suite path "
+        f"{suite_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
+        [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
         [k for k in SUITE_KERNELS if suite_launches[k] < 1]
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
+    within = [line for line in MODEL_LINES if line[2] <= MODEL_RATIO * line[4]]
+    log(f"model: the cost model's pick within {MODEL_RATIO}x of the walk "
+        f"leader's device time on {len(within)} of {len(MODEL_LINES)} matrices")
+    for name, pick, pick_ms, lead, lead_ms in MODEL_LINES:
+        log(f"    {name:28s} pick {label({'dia_impl': 'cuda', **pick}):12s} "
+            f"{pick_ms:.4f} ms, leader {label(lead):12s} {lead_ms:.4f} ms, "
+            f"ratio {pick_ms / lead_ms:.3f}")
 
     sources = {
         "dia_spmv": ("dia_spmv.cu", "cusp_autotuned_tpu/kernels/pallas_dia.py:393"),
@@ -1277,6 +1568,8 @@ def main():
                           "cusp_autotuned_tpu/kernels/pallas_colsort2.py:519"),
         "routed_spmm": ("routed_spmm.cu",
                         "cusp_autotuned_tpu/kernels/pallas_routed.py:426"),
+        "take_probe": ("take_probe.cu",
+                       "cusp_autotuned_tpu/autotune/calibrate.py:144"),
     }
     kernels = []
     for name in KERNELS:
@@ -1286,8 +1579,9 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": (cg_launches[name] + tuned_launches[name]
-                         + spmm_launches[name] + suite_launches[name]),
+            "launches": (cg_launches[name] + amg_launches[name]
+                         + tuned_launches[name] + spmm_launches[name]
+                         + suite_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

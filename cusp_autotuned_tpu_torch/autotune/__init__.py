@@ -15,8 +15,9 @@ Public API parity:
 
 Configurations are the kernels' launch parameters and the format-selection
 moves (kernels/variants.py); validation holds each against the scipy
-oracle.  The JAX package's cost model (cost_model.py, ModelGuidedSearcher)
-is not ported yet.
+oracle.  The cost model (cost_model.py) prices each impl on the card before
+anything is built: it gives the untuned pick (recommend_config), the
+dynamic walk's order and ModelGuidedSearcher's.
 """
 
 from cusp_autotuned_tpu_torch.autotune.tuner import (
@@ -29,6 +30,9 @@ from cusp_autotuned_tpu_torch.autotune.space import (
 )
 from cusp_autotuned_tpu_torch.autotune.result import ResultStatus, TuningResult
 from cusp_autotuned_tpu_torch.autotune.search import (
-    DeterministicSearcher, RandomSearcher, StopCondition, TuningDuration,
-    ConfigurationCount, ConfigurationFraction,
+    DeterministicSearcher, RandomSearcher, ModelGuidedSearcher, StopCondition,
+    TuningDuration, ConfigurationCount, ConfigurationFraction,
+)
+from cusp_autotuned_tpu_torch.autotune.cost_model import (
+    DEVICE_MODEL, pattern_stats, predict, recommend_config, model_order_key,
 )

@@ -151,6 +151,16 @@ def matrix_signature(A, x=None) -> str:
     return ":".join(parts)
 
 
+# the cost model reads the pattern back to the host: above this many
+# entries the untuned pick and the dynamic walk do without it, as the JAX
+# package's tuner does
+MODEL_MAX_NNZ = 8_000_000
+
+
+def model_applies(A) -> bool:
+    return getattr(A, "nnz", 0) <= MODEL_MAX_NNZ
+
+
 def _tolerance(dtype) -> float:
     """Validation bar of a precision class: f64, bf16 storage, else f32."""
     name = str(dtype)
@@ -185,6 +195,7 @@ class Tuner:
         self.results: Dict[str, Dict[str, TuningResult]] = {}
         self._built: Dict[tuple, Callable] = {}
         self._best_fn: Dict[str, Callable] = {}
+        self._walk_order: Dict[str, List[Dict[str, Any]]] = {}
         if cache_path and os.path.exists(cache_path):
             self.load(cache_path)
 
@@ -304,9 +315,24 @@ class Tuner:
 
     # -- public engine ---------------------------------------------------------
 
+    def _dynamic_order(self, A, sig) -> List[Dict[str, Any]]:
+        """The dynamic walk's order: the cost model's best-predicted impls
+        first, since each step runs on the caller's path.  The model reads
+        the pattern on the host, so above MODEL_MAX_NNZ entries the walk
+        keeps the space's order."""
+        order = self._walk_order.get(sig)
+        if order is None:
+            order = configurations_for(A)
+            if model_applies(A):
+                from cusp_autotuned_tpu_torch.autotune.cost_model import (
+                    model_order_key)
+                order = sorted(order, key=model_order_key(A))
+            self._walk_order[sig] = order
+        return order
+
     def tune_iteration(self, A, x):
-        """Run the next untried configuration (or the best one once the
-        space is exhausted) and return y = A @ x."""
+        """Run the next untried configuration, in the cost model's order (or
+        the best one once the space is exhausted), and return y = A @ x."""
         from cusp_autotuned_tpu_torch.kernels.variants import default_config
         self.channel(x)
         sig = matrix_signature(A, x)
@@ -314,7 +340,7 @@ class Tuner:
         if fast is not None:
             return fast(x)
         store = self.results.setdefault(sig, {})
-        for config in configurations_for(A):
+        for config in self._dynamic_order(A, sig):
             ck = config_key(config)
             if ck not in store:
                 result = store[ck] = self._execute(A, x, config)
@@ -374,13 +400,17 @@ class Tuner:
 
     def best_configuration(self, A, x=None) -> Dict[str, Any]:
         """The valid configuration of least duration_ms; with nothing
-        measured, the format's default configuration.  (The JAX package
-        asks its cost model here; the port's is not written yet.)"""
+        measured, the cost model's pick (recommend_config) for a vector x,
+        and the format's default configuration for a dense block x, which
+        the model does not price, or above MODEL_MAX_NNZ entries."""
         ok = [r for r in self.results.get(matrix_signature(A, x), {}).values()
               if r.is_valid()]
         if ok:
             return dict(min(ok, key=lambda r: r.duration_ms).configuration)
         from cusp_autotuned_tpu_torch.kernels.variants import default_config
+        if (x is None or x.dim() == 1) and model_applies(A):
+            from cusp_autotuned_tpu_torch.autotune.cost_model import recommend_config
+            return recommend_config(A, x)[0]
         return default_config(A, x)
 
     def reset_tuning(self, A=None) -> None:
@@ -388,10 +418,12 @@ class Tuner:
             self.results.clear()
             self._built.clear()
             self._best_fn.clear()
+            self._walk_order.clear()
             return
         sig = matrix_signature(A)
         self.results.pop(sig, None)
         self._best_fn.pop(sig, None)
+        self._walk_order.pop(sig, None)
         self._built = {k: v for k, v in self._built.items() if k[0] != sig}
 
 
@@ -420,9 +452,9 @@ def _ones(A):
 
 def tuned_operator(A, x=None, tune_first: bool = False, mesh=None):
     """The global tuner's best known configuration for A as a solver
-    operator (operators.planned_operator).  tune_first=True walks the space
-    first when it holds no results for A.  mesh= waits for the
-    multi-device slice."""
+    operator (operators.planned_operator): with no results for A, the cost
+    model's pick.  tune_first=True walks the space first when it holds no
+    results for A.  mesh= waits for the multi-device slice."""
     from cusp_autotuned_tpu_torch.operators import planned_operator
     if mesh is not None:
         raise NotImplementedException(

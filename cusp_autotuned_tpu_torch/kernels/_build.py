@@ -76,6 +76,8 @@ _SIGNATURES = {
                           _vp, _i32, _i32, _vp), _TYPED),
     # x, y, n, block, stream
     "cusp_stream_triad": ((_vp, _vp, _i64, _i32, _vp), ("f32",)),
+    # x, idx, out, rows, passes, from_shared, stream
+    "cusp_take_probe": ((_vp, _vp, _vp, _i64, _i32, _i32, _vp), ("f32",)),
 }
 
 

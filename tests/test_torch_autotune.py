@@ -336,8 +336,13 @@ def test_reset_searchers_and_stop_conditions():
 
 
 def test_untuned_best_is_the_default_and_channels_do_not_fall_back():
+    """With nothing measured the tuner's best is the cost model's pick for
+    a vector x, and the format's default for a dense block x, which the
+    model does not price."""
+    from cusp_autotuned_tpu_torch.autotune.cost_model import recommend_config
     A = gallery.poisson5pt(8, 8, format="csr", device="cpu")
-    assert Tuner().best_configuration(A) == default_config(A) == \
+    assert Tuner().best_configuration(A) == recommend_config(A)[0]
+    assert Tuner().best_configuration(A, torch.ones(64, 2)) == default_config(A) == \
         {"impl": "segsum", "dia_impl": "none"}
     with pytest.raises(InvalidInputException):
         Tuner(timing_channel="cuda_events").tune(A, torch.ones(64))

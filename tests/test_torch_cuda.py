@@ -580,3 +580,77 @@ def test_new_rail_wrappers_raise_on_card(cuda_device, impl):
     with pytest.raises(FormatConversionException):
         build_spmv(from_scipy(sp.coo_matrix((6, 7)), "csr", dtype=torch.float32,
                               device=cuda_device), {"impl": impl})
+
+
+@pytest.mark.parametrize("from_shared", [True, False])
+@pytest.mark.parametrize("passes", [2, 3, 18])
+def test_take_probe_matches_plain_on_card(cuda_device, from_shared, passes):
+    """Both instantiations of the take probe compute the plain version's
+    function; products and sums are rounded one by one in pass order, so
+    the bar is rtol 1e-6 (the JAX package's, tests/test_calibrate.py)."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(64 * 128, 128).astype(np.float32))
+    idx = calibrate.take_probe_planes()
+    want = calibrate.take_probe_plain(x, idx, passes)
+    before = calibrate.take_probe.launches
+    got = calibrate.take_probe(x.to(cuda_device), idx.to(cuda_device), passes,
+                               from_shared)
+    torch.cuda.synchronize()
+    assert calibrate.take_probe.launches - before == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+
+
+def test_take_probe_raises_on_card(cuda_device):
+    x = torch.zeros(2 * 128, 128, device=cuda_device)
+    idx = calibrate.take_probe_planes().to(cuda_device)
+    before = calibrate.take_probe.launches
+    for args in ((x.double(), idx, 2), (x, idx.long(), 2), (x[:100], idx, 2),
+                 (x, idx, 19), (x, idx.cpu(), 2)):
+        with pytest.raises(InvalidInputException):
+            calibrate.take_probe(*args)
+    assert calibrate.take_probe.launches == before
+    ns = calibrate.tile_take_ns(cuda_device, tiles=256, reps=3)
+    assert np.isfinite(ns) and ns > 0
+
+
+def test_smoothed_aggregation_plans_on_card(cuda_device):
+    """smoothed_aggregation(spmv_config={}) plans every level on the card
+    (no CPU tensor in any operator; a 2-D stencil's fine A on the DIA
+    kernel), and its
+    V-cycle equals the V-cycle through the containers' plain products to
+    rtol 1e-5 (f32 sums in another order)."""
+    from cusp_autotuned_tpu_torch.precond import smoothed_aggregation
+    from cusp_autotuned_tpu_torch.precond.multilevel import Multilevel
+
+    def tensors(op):
+        """Every tensor an operator holds, but the binned plan's `bins`: a
+        small host table of launch parameters (binned_spmv's), by design."""
+        if isinstance(op, torch.Tensor):
+            yield op
+        elif isinstance(op, (tuple, list)):
+            for v in op:
+                yield from tensors(v)
+        elif isinstance(op, dict):
+            for k, v in op.items():
+                if k != "bins":
+                    yield from tensors(v)
+        elif hasattr(op, "__dataclass_fields__"):
+            for name in op.__dataclass_fields__:
+                yield from tensors(getattr(op, name))
+
+    for A in (gallery.poisson5pt(300, 300, format="csr", device=cuda_device),
+              gallery.poisson7pt(20, 20, 20, format="csr", device=cuda_device)):
+        M = smoothed_aggregation(A, spmv_config={})
+        if A.num_rows == 300 * 300:
+            assert M.levels[0].Aop.impl == "via_dia"
+        for lvl in M.levels:
+            for op in (lvl.Aop, lvl.Rop, lvl.Pop):
+                assert op is not None
+                assert all(t.device.type == "cuda" for t in tensors(op))
+        plain = Multilevel(levels=tuple(
+            type(lvl)(R=lvl.R, A=lvl.A, P=lvl.P, smoother=lvl.smoother)
+            for lvl in M.levels), coarse=M.coarse, shape=M.shape)
+        b = _x(A.num_rows, cuda_device)
+        torch.testing.assert_close(M(b), plain(b), rtol=1e-5, atol=1e-5)
+        x, mon = solvers.cg(A, b, M=M, monitor=Monitor(b, 200, 1e-5))
+        assert mon.converged() and mon.iteration_count() < 40

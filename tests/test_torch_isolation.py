@@ -25,6 +25,12 @@ SLICE_MODULES = (
     "autotune.calibrate", "formats.dense", "eigen.arnoldi", "eigen.gram_schmidt",
     "eigen.lanczos", "eigen.lobpcg", "eigen.spectral_radius",
     "gallery.poisson", "gallery.suite", "kernels.colsort2", "kernels.routed",
+    "autotune.cost_model", "autotune.fit_cost_model", "ops.format_utils",
+    "relaxation.jacobi", "relaxation.polynomial", "precond.diagonal",
+    "precond.smoothers", "precond.multilevel", "precond.aggregation",
+    "precond.aggregation.strength", "precond.aggregation.aggregate",
+    "precond.aggregation.tentative", "precond.aggregation.smooth",
+    "precond.aggregation.structured_rap", "native",
 )
 
 
