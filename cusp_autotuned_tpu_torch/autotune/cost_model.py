@@ -311,7 +311,8 @@ def predict(A, x=None, device: Optional[Dict[str, float]] = None,
     plain path), via_dense, via_dia (the DIA kernel, through a conversion
     unless A is DIA), via_dia_bf16 (with allow_low_precision), and for the
     other formats the kernels cuda (a warp a row), binned, colsort,
-    colsort2 and routed."""
+    colsort2 and routed.  A complex matrix has only the default: the
+    kernels take real values only."""
     from cusp_autotuned_tpu_torch.kernels.variants import _DEFAULTS
     from cusp_autotuned_tpu_torch.ops.convert import FILL_THRESHOLD, MAX_FILL_RATIO
 
@@ -336,6 +337,8 @@ def predict(A, x=None, device: Optional[Dict[str, float]] = None,
     else:
         out["default"] = {"us": nnz * (dev["gather_ns"] + dev["segsum_ns"]) * 1e-3
                           + 2 * dev["launch_us"], "config": plain}
+    if A.dtype.is_complex:
+        return out
 
     dense_bytes = m * n * v
     if st["density"] >= 0.25 and dense_bytes <= (32 << 20):

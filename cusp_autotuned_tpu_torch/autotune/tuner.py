@@ -162,13 +162,25 @@ def model_applies(A) -> bool:
 
 
 def _tolerance(dtype) -> float:
-    """Validation bar of a precision class: f64, bf16 storage, else f32."""
-    name = str(dtype)
-    if "64" in name:
+    """Validation bar of a precision class: f64 and complex128 1e-10, bf16
+    storage (a dtype or the `value_dtype` name) 2e-2, else f32 and
+    complex64 1e-4."""
+    if dtype in (torch.float64, torch.complex128):
         return 1e-10
-    if "16" in name:
+    if dtype in (torch.bfloat16, torch.float16, "bfloat16", "bf16"):
         return 2e-2
     return 1e-4
+
+
+def _host128(values) -> np.ndarray:
+    """values (a tensor or array) on the host in f64, or complex128 where
+    they are complex, so that a validation compares imaginary parts too."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu()
+        values = values.to(torch.complex128 if values.is_complex()
+                           else torch.float64).numpy()
+    values = np.asarray(values)
+    return values.astype(np.complex128 if np.iscomplexobj(values) else np.float64)
 
 
 def _sync(x) -> None:
@@ -365,7 +377,7 @@ class Tuner:
         self.channel(x)
         order = (searcher or DeterministicSearcher()).order(configurations_for(A))
         if reference_computation is not None:
-            expected = np.asarray(reference_computation(A, x), dtype=np.float64)
+            expected = _host128(reference_computation(A, x))
             scale = np.linalg.norm(expected) or 1.0
         sig = matrix_signature(A, x)
         store = self.results.setdefault(sig, {})
@@ -381,8 +393,7 @@ class Tuner:
                 tol = _tolerance(vd if vd not in (None, 0, "none") else A.dtype)
 
                 def validate(y, _tol=tol):
-                    err = np.linalg.norm(
-                        y.detach().cpu().double().numpy() - expected)
+                    err = np.linalg.norm(_host128(y) - expected)
                     return err / scale <= _tol
             result = self._execute(A, x, config, validate=validate)
             store[config_key(config)] = result

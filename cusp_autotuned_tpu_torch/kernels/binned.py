@@ -21,7 +21,7 @@ import torch
 
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.kernels.dia import _scale
+from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -58,9 +58,11 @@ def plan_bins(indptr, threads_per_row=0, hub_cap=HUB_CAP):
 
 def binned_spmv_plain(indptr, col, val, perm, bins, x, num_rows):
     """The plan walked bin by bin in PyTorch: each bin's rows gather their
-    entries and add them up with an index_add_, accumulated in x's dtype.
-    A row that no bin lists stays NaN, so a broken plan cannot pass.  x may
-    be (n,) or (n, k): this is the plain version of both kernels."""
+    entries and add them up with an index_add_, accumulated in the promoted
+    type of val and x.  A row that no bin lists stays NaN, so a broken plan
+    cannot pass.  x may be (n,) or (n, k): this is the plain version of both
+    kernels."""
+    x = promoted(val, x)
     y = x.new_full((num_rows,) + x.shape[1:], float("nan"))
     for start, count, _ in bins.tolist():
         rows = perm[start:start + count].long()

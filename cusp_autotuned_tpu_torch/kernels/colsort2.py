@@ -24,7 +24,7 @@ import torch
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
 from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE
-from cusp_autotuned_tpu_torch.kernels.dia import _scale
+from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -83,6 +83,7 @@ def hub_plain(col, val, hub, x, y):
     """The hub region in PyTorch: each virtual row's sum, then each hub
     row's virtual rows added in order into y (assigned, so a hub row the
     plan misses keeps what y held).  x may be (n,) or (n, k)."""
+    x = promoted(val, x)
     rows, ptr, lo, hi = hub
     if rows.numel() == 0:
         return y
@@ -104,6 +105,7 @@ def colsort2_spmv_plain(indptr, col, val, hub, x, num_rows, K, V, thr):
     summed per plane (plane k: entries [k V, (k + 1) V) of the row), the
     planes added in order, then the hub region.  x may be (n,) or (n, k):
     this is the plain version of both kernels."""
+    x = promoted(val, x)
     m = num_rows
     lengths = torch.diff(indptr).long()
     nnz = int(lengths.sum())

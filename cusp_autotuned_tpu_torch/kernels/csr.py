@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.kernels.dia import _scale
+from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     InvalidInputException, NotImplementedException,
@@ -25,8 +25,10 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
 
 def csr_spmv_plain(row, col, val, x, num_rows):
     """y[row[e]] += val[e] * x[col[e]] by a gather and an index_add_,
-    accumulated in x's dtype.  Padding entries carry row == num_rows and
-    fall into a slot that is dropped.  x may be (n,) or (n, k)."""
+    accumulated in the promoted type of val and x.  Padding entries carry
+    row == num_rows and fall into a slot that is dropped.  x may be (n,) or
+    (n, k)."""
+    x = promoted(val, x)
     prod = _scale(val.to(x.dtype), torch.index_select(x, 0, col))
     y = x.new_zeros((num_rows + 1,) + x.shape[1:])
     y.index_add_(0, row, prod)
@@ -77,7 +79,10 @@ def build_csr(A, config):
     """Plan A for the kernel: CSR as it is; any other format through its
     entries (ELL's -1 slots dropped) converted to CSR on the host.  Values
     are in the storage dtype that `value_dtype` names, and the launch has
-    `block_size` threads per block."""
+    `block_size` threads per block.  Complex values raise
+    NotImplementedException here, at build time."""
+    if A.dtype.is_complex:
+        raise NotImplementedException("CSR kernel supports real dtypes only")
     if A.format != "csr":
         from cusp_autotuned_tpu_torch.ops.convert import convert
         A = convert(A, "csr")

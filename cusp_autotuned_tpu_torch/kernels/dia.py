@@ -26,6 +26,13 @@ def _scale(vals, xs):
     return vals * xs if xs.dim() == 1 else vals[:, None] * xs
 
 
+def promoted(vals, x):
+    """x in the type of its product with `vals`, torch.promote_types of the
+    two: a complex matrix times a real x is complex, an f64 matrix times an
+    f32 x is f64, and bf16 storage times an f32 x stays f32."""
+    return x.to(torch.promote_types(vals.dtype, x.dtype))
+
+
 def _pad_rows(x, left, right):
     z = x.new_zeros
     return torch.cat([z((left,) + x.shape[1:]), x, z((right,) + x.shape[1:])])
@@ -33,9 +40,10 @@ def _pad_rows(x, left, right):
 
 def dia_spmv_plain(data, offsets, x, shape):
     """y = A @ x by shifted slices of a zero-padded x, one per diagonal,
-    accumulated in x's dtype (the XLA path of the JAX package's
-    ops/multiply.py:spmv_dia).  x may be (n,) or (n, k): this is the plain
-    version of both kernels."""
+    accumulated in the promoted type of data and x (the XLA path of the JAX
+    package's ops/multiply.py:spmv_dia).  x may be (n,) or (n, k): this is
+    the plain version of both kernels."""
+    x = promoted(data, x)
     m, n = shape
     mp = data.shape[1]
     left = -min(0, min(offsets))
@@ -119,7 +127,11 @@ dia_spmm.launches = 0
 def build_dia(A, config):
     """Plan A (a DIA container) for the kernel: diagonal data in the storage
     dtype that `value_dtype` names, offsets as a device tensor, launched
-    with `block_size` threads per block."""
+    with `block_size` threads per block.  Complex values raise
+    NotImplementedException here, at build time: the kernels take real
+    values only."""
+    if A.dtype.is_complex:
+        raise NotImplementedException("DIA kernel supports real dtypes only")
     store = plan_value_dtype(config, A.dtype)
     block = _build.block_size(config)
     arrays = {

@@ -28,7 +28,7 @@ from cusp_autotuned_tpu_torch.kernels import _build
 from cusp_autotuned_tpu_torch.kernels.colsort2 import (
     auto_hub_cap, colsort2_hub, hub_plain, hub_tensors, plan_hub,
 )
-from cusp_autotuned_tpu_torch.kernels.dia import _scale
+from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -69,6 +69,7 @@ def routed_spmv_plain(indptr, col, val, hub, x, num_rows, thr):
     gather and an index_add_ (where x is read from does not change the
     sum), then the tail through the hub region's plain version.  x may be
     (n,) or (n, k): this is the plain version of both kernels."""
+    x = promoted(val, x)
     m = num_rows
     lengths = torch.diff(indptr).long()
     nnz = int(lengths.sum())

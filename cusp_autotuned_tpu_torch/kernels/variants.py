@@ -45,6 +45,7 @@ from cusp_autotuned_tpu_torch.autotune.space import TuningSpace
 from cusp_autotuned_tpu_torch.kernels.binned import build_binned
 from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort
 from cusp_autotuned_tpu_torch.kernels.colsort2 import build_colsort2
+from cusp_autotuned_tpu_torch.kernels.dia import promoted
 from cusp_autotuned_tpu_torch.kernels.routed import build_routed
 from cusp_autotuned_tpu_torch.utils.config import get_config, plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
@@ -74,6 +75,7 @@ def _build_dia_gather(A, config):
     idx = idx.clamp(0, n - 1)
 
     def fn(x):
+        x = promoted(A.data, x)
         xg = torch.index_select(x, 0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
         data, mask = A.data.to(x.dtype), valid
         if x.dim() == 2:
@@ -136,7 +138,8 @@ def _build_via_dense(A, config):
     D = torch.tensor(to_scipy(A).toarray(), dtype=A.dtype, device=A.device)
 
     def fn(x):
-        return torch.matmul(D, x)
+        x = promoted(D, x)
+        return torch.matmul(D.to(x.dtype), x)
     return fn
 
 
@@ -191,9 +194,10 @@ def default_config(A, x=None) -> Dict[str, Any]:
     on the CPU.  For a vector x that is the `cuda` impl; for a dense block
     x (n, k) the DIA SpMM kernel for dia and the binned SpMM kernel for the
     other formats, since the CSR kernel (warp per row) takes vectors only,
-    as the JAX package's `pallas` impl does."""
+    as the JAX package's `pallas` impl does.  A complex matrix takes the
+    plain path on any device: the kernels take real values only."""
     cfg = dict(_DEFAULTS[A.format])
-    if A.device.type == "cuda":
+    if A.device.type == "cuda" and not A.dtype.is_complex:
         block = x is not None and x.dim() == 2
         cfg["impl"] = "binned" if block and A.format != "dia" else "cuda"
     return cfg

@@ -14,7 +14,7 @@ import torch
 
 from cusp_autotuned_tpu_torch import formats as F
 from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv_plain
-from cusp_autotuned_tpu_torch.kernels.dia import dia_spmv_plain
+from cusp_autotuned_tpu_torch.kernels.dia import dia_spmv_plain, promoted
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     InvalidInputException, NotImplementedException,
 )
@@ -34,7 +34,9 @@ def spmv_dia(A: F.DIA, x):
 
 def _ell_terms(A, x):
     """(width, rows[, k]) products of every slot; a -1 slot gathers x[0]
-    and carries val == 0, so it adds nothing."""
+    and carries val == 0, so it adds nothing.  Computed in the promoted
+    type of val and x."""
+    x = promoted(A.val, x)
     col = A.col.clamp(0, max(A.num_cols - 1, 0))
     xg = torch.index_select(x, 0, col.reshape(-1)).reshape(col.shape + x.shape[1:])
     val = A.val.to(x.dtype)
