@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Five main paths, each driven with every kernel's launch count set to 0
+Six main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
@@ -37,6 +37,22 @@ just before it and read just after:
             matrix at k = 16, eigen.lobpcg (100 iterations) on the operator
             tuned for a (n, 3) block, and a 100x100 LOBPCG against the
             analytic eigenvalue and against the plain operator;
+  multidevice
+            the multi-device path on parallel.make_row_mesh([cuda:0] * 4),
+            four mesh entries on the one card: cg.cu through the banded
+            via_dia plan (shard_planned_dia, the DIA band kernels), its
+            block apply at k = 16, distributed_cg, distributed_cg_shardmap
+            and distributed_cg_halo (25 iterations on DIA) and
+            distributed_bicgstab (CSR), cg(A_csr, b, mesh=) against the
+            unsharded CSR-kernel solve, the row-banded binned and COO
+            SpMVs on the skewed 1M-row matrix and distributed_cg_binned,
+            AMG-CG with the amg path's hierarchy distributed
+            (distribute_multilevel), shard_planned_blocks on routed
+            (williams_suite(2.0)'s Economics made symmetric and diagonally
+            dominant, CG against the single-device routed solve) and
+            colsort2 (the power-law 1M-row matrix), lanczos(mesh=) and
+            tuned_operator(A, mesh=), and the sharded SpMV and CG iteration
+            timed against the unsharded ones;
   suite     the scattered-pattern rails on the Williams/Bell-Garland suite:
             gallery.williams_suite(scale=2.0)'s five scattered entries
             (Economics, FEM/Accelerator, Circuit, Webbase, LP) as CSR on the
@@ -76,6 +92,11 @@ Phases:
   colsort2_spmm, routed_spmm
                the same at k = 16 on the four matrices, and on the JAX
                package's SpMM test shapes of the two rails
+  dia_band_spmv, dia_band_spmm
+               the DIA band kernels against their plain versions on every
+               row band of poisson5pt 1000x1000 f32 over a mesh of four
+               entries, a vector and k = 16, rtol 1e-6, and the banded
+               product against the unsharded DIA kernel's
   take_probe   the take probe (both instantiations: x staged in shared
                memory, x read through L1/L2) against its plain version at
                64 tiles and 2, 3 and 18 passes, rtol 1e-6, then timed at
@@ -86,6 +107,7 @@ Phases:
   autotune     the autotune path
   spmm         the spmm path
   suite        the suite path
+  multidevice  the multidevice path
   model        for each matrix the autotune and suite paths walk, the cost
                model's pick (recommend_config) against the walk's leader,
                both timed again side by side as the tuner times them
@@ -131,7 +153,15 @@ SPMV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
                 "stream_triad")
 SPMM_KERNELS = ("dia_spmm", "binned_spmm", "coo_spmm")
 SUITE_KERNELS = ("colsort2_spmv", "routed_spmv", "colsort2_spmm", "routed_spmm")
-KERNELS = SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS + ("take_probe",)
+BAND_KERNELS = ("dia_band_spmv", "dia_band_spmm")
+KERNELS = SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS + ("take_probe",) + BAND_KERNELS
+# the kernels the multidevice path must launch
+MULTIDEVICE_KERNELS = BAND_KERNELS + ("csr_spmv", "binned_spmv", "coo_spmv",
+                                      "colsort2_spmv", "routed_spmv")
+MESH_ENTRIES = 4
+BAND_RTOL = 1e-6                     # a band's rows are the unsharded kernel's
+SHARDED_CG_RTOL = 1e-4               # __graft_entry__.py:99 (x of the CG variants)
+ROW12_RTOL = 1e-5                    # relative to ||y||
 # the kernels each wrapper launches, each once a call (the COO wrappers'
 # torch.zeros adds a fill kernel, which is PyTorch's own)
 WRAPPER_KERNELS = {
@@ -145,6 +175,8 @@ WRAPPER_KERNELS = {
     "colsort2_spmm": ("colsort2_spmm_main_kernel",),
     "routed_spmv": ("routed_spmv_kernel",), "routed_spmm": ("routed_spmm_kernel",),
     "take_probe": ("take_probe_kernel",),
+    "dia_band_spmv": ("dia_band_spmv_kernel",),
+    "dia_band_spmm": ("dia_band_spmm_kernel",),
     # the hub pair of a colsort2 plan with hub rows, and routed's tail
     "colsort2_hub": ("colsort2_hub_kernel", "colsort2_hub_fold_kernel"),
     "colsort2_hub_spmm": ("colsort2_spmm_hub_kernel", "colsort2_spmm_hub_fold_kernel"),
@@ -245,7 +277,10 @@ def device_ms(fn, calls=PER_SAMPLE):
     `calls`, a lower bound where records were dropped.  Where a call's host
     work outlasts its kernels, this is below median_ms."""
     expect = wrapper_kernels(fn)
-    kernels = device_kernels(fn, calls)
+    for _ in range(3):              # a window with no device record at all
+        kernels = device_kernels(fn, calls)
+        if kernels:
+            break
     if not kernels:
         return None, None, kernels
     if not expect:
@@ -789,8 +824,10 @@ def counters():
     from cusp_autotuned_tpu_torch.kernels.binned import binned_spmm, binned_spmv
     from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmm, coo_spmv
     from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv
-    from cusp_autotuned_tpu_torch.kernels.dia import dia_spmm, dia_spmv
+    from cusp_autotuned_tpu_torch.kernels.dia import (
+        dia_band_spmm, dia_band_spmv, dia_spmm, dia_spmv)
     return {"dia_spmv": dia_spmv, "csr_spmv": csr_spmv,
+            "dia_band_spmv": dia_band_spmv, "dia_band_spmm": dia_band_spmm,
             "binned_spmv": binned_spmv, "coo_spmv": coo_spmv,
             "stream_triad": stream_triad, "dia_spmm": dia_spmm,
             "binned_spmm": binned_spmm, "coo_spmm": coo_spmm,
@@ -882,7 +919,7 @@ def cg_phase(device, A):
     (ik, ck, rk), (ip, cp, rp) = out["cuda"], out["slices"]
     if not (ck and cp and abs(ik - ip) <= 2 and rk < 1e-2 and rp < 1e-2):
         raise RuntimeError("cg: 100x100 kernel and plain solves disagree")
-    return launches, b, its
+    return launches, b, its, rel
 
 
 def check_statuses(where, results, vector_only=()):
@@ -1371,7 +1408,6 @@ def amg_phase(device):
     from cusp_autotuned_tpu_torch.operators import planned_operator
     from cusp_autotuned_tpu_torch.ops import blas
     from cusp_autotuned_tpu_torch.precond import smoothed_aggregation
-    from cusp_autotuned_tpu_torch.solvers.cg import CHECK_EVERY
     from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 
     A = gallery.poisson5pt(1000, 1000, format="csr", device=device)
@@ -1410,9 +1446,14 @@ def amg_phase(device):
     log(f"amg: tuned_operator(A) with no walk: {autotune.get_tuner().best_configuration(A)}"
         f" ({op.impl})")
     solvers.cg(op, b, M=M, monitor=Monitor(b, 3, 1e-5))        # warm-up
+    cycles = []
+
+    def counted(r):                 # the V-cycles cg applies
+        cycles.append(1)
+        return M(r)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, mon = solvers.cg(op, b, M=M, monitor=Monitor(b, 2000, 1e-5))
+    x, mon = solvers.cg(op, b, M=counted, monitor=Monitor(b, 2000, 1e-5))
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     its = mon.iteration_count()
@@ -1420,23 +1461,22 @@ def amg_phase(device):
     err = float(blas.nrm2(x - x_true) / blas.nrm2(x_true))
     _, mon_plain, plain_s = solve(op, b)
     plain_its = mon_plain.iteration_count()
-    # cg reads its stop flag once a block of CHECK_EVERY iterations and
-    # masks the rest of the block: those passes run too
-    passes = max(1, -(-its // CHECK_EVERY)) * CHECK_EVERY
     log(f"amg: AMG-CG (rtol 1e-5, limit 2000): {its} iterations, converged "
         f"{mon.converged()}, relative residual "
         f"{mon.residual_norm() / mon.b_norm:.3e}, true {true_res:.3e} (CSR "
         f"kernel), error against x_true {err:.3e}; solve {solve_s:.3f} s, "
-        f"{1e3 * solve_s / max(its, 1):.4f} ms/iteration, "
-        f"{1e3 * solve_s / passes:.4f} ms a loop pass ({passes} passes, the "
-        f"masked ones included); plain CG on the same b {plain_its} "
-        f"iterations, {plain_s:.3f} s, {1e3 * plain_s / max(plain_its, 1):.4f} "
-        f"ms/iteration")
+        f"{1e3 * solve_s / max(its, 1):.4f} ms/iteration, {len(cycles)} V-cycles "
+        f"(cg reads its stop flag every iteration when M is set); plain CG on "
+        f"the same b {plain_its} iterations, {plain_s:.3f} s, "
+        f"{1e3 * plain_s / max(plain_its, 1):.4f} ms/iteration")
+    if len(cycles) > its + 2:
+        raise RuntimeError(f"amg: cg applied M {len(cycles)} times in {its} "
+                           f"iterations")
     if not (mon.converged() and torch.isfinite(x).all() and true_res < 1e-4
             and its < plain_its / 2):
         raise RuntimeError(f"amg: AMG-CG took {its} iterations (plain CG "
                            f"{plain_its}), true residual {true_res}")
-    del M, op, x
+    del op, x
 
     # the defaults, as bench.py's amg_cg_iters row runs them
     A150 = gallery.poisson5pt(150, 150, format="csr", dtype=torch.float64,
@@ -1480,6 +1520,282 @@ def amg_phase(device):
         raise RuntimeError("amg: the poisson7pt AMG-CG did not converge")
     launches = read_counts()
     log(f"amg: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return launches, its, M, b
+
+
+def band_csr(A, r0, r1):
+    """Rows [r0, r1) of a CSR container as a torch.sparse_csr_tensor, the
+    cuSPARSE yardstick of one band."""
+    lo, hi = int(A.indptr[r0]), int(A.indptr[r1])
+    return torch.sparse_csr_tensor(A.indptr[r0:r1 + 1] - lo, A.col[lo:hi],
+                                   A.val[lo:hi].float(), size=(r1 - r0, A.num_cols))
+
+
+def band_phase(device, triad_gbps, A_csr, S):
+    """The DIA band kernels against their plain versions on every band of
+    poisson5pt 1000x1000 over a mesh of MESH_ENTRIES entries on the card,
+    a vector and k = 16, and the banded product against the unsharded DIA
+    kernel's; band 0 timed.  Then queue row 12: the binned and COO kernels
+    on band 0's plan of the skewed 1M-row matrix S, timed against their
+    plain versions and cuSPARSE on the same band.  Returns the two band
+    kernels' records."""
+    from cusp_autotuned_tpu_torch import parallel
+    from cusp_autotuned_tpu_torch.kernels.binned import binned_spmv_plain
+    from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmv_plain
+    from cusp_autotuned_tpu_torch.kernels.dia import (
+        build_dia, dia_band_spmv, dia_band_spmv_plain)
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+
+    mesh = parallel.make_row_mesh([device] * MESH_ENTRIES)
+    D = convert(A_csr, "dia")
+    op = parallel.shard_planned_dia(D, mesh)
+    band = op.arrays[0]["data"].shape[1]
+    left = -min(0, min(D.offsets))
+    reach = (min(D.offsets), max(D.offsets))
+    span = reach[1] - reach[0]
+    k = len(D.offsets)
+    log(f"dia_band_spmv / dia_band_spmm: {MESH_ENTRIES} bands of {band} rows of "
+        f"poisson5pt 1000x1000 f32, each band kernel against its plain version "
+        f"(rtol {BAND_RTOL}); useful bytes a band = k*band*4 + (band + "
+        f"{span})*4*cols + band*4*cols")
+    unsharded = build_dia(D, {})
+    records = {}
+    for cols in (0, 16):
+        x = seeded_x(D.num_cols, 21, device) if cols == 0 \
+            else seeded_block(D.num_cols, cols, 22, device)
+        x_pad = op.x_prep(x)
+        name = "dia_band_spmv" if cols == 0 else "dia_band_spmm"
+        width = max(cols, 1)
+        for i, arrs in enumerate(op.arrays):
+            def kernel(arrs=arrs, i=i):
+                return dia_band_spmv(arrs["data"], arrs["offsets"], x_pad, left,
+                                     i * band, reach)
+
+            def plain(arrs=arrs, i=i):
+                return dia_band_spmv_plain(arrs["data"], D.offsets, x_pad, left,
+                                           i * band)
+            if i == 0:
+                useful = k * band * 4 + (band + span) * 4 * width + band * 4 * width
+                S0 = band_csr(A_csr, 0, band)
+                records[name] = compare(
+                    f"{name} band 0 of {MESH_ENTRIES}", kernel, plain, BAND_RTOL,
+                    0.0, useful, 2 * k * band * width, triad_gbps,
+                    library=lambda S0=S0: S0 @ x,
+                    samples=SAMPLES if cols == 0 else SPMM_SAMPLES,
+                    per_sample=PER_SAMPLE if cols == 0 else SPMM_PER_SAMPLE)
+            else:
+                y, yp = kernel(), plain()
+                if not bool(((y - yp).abs() <= BAND_RTOL * yp.abs()).all()):
+                    raise RuntimeError(f"{name}: band {i} differs from its plain "
+                                       f"version")
+        y_banded, y_whole = op(x), unsharded(x)
+        torch.cuda.synchronize()
+        if not bool(((y_banded - y_whole).abs() <= BAND_RTOL * y_whole.abs()).all()):
+            raise RuntimeError(f"{name}: the banded product differs from the "
+                               f"unsharded DIA kernel's")
+        log(f"  {name}: every band matches its plain version; banded product "
+            f"against the unsharded kernel's: max abs diff "
+            f"{float((y_banded - y_whole).abs().max()):.3e}")
+
+    x = seeded_x(S.num_cols, 27, device)
+    band0 = -(-S.num_rows // MESH_ENTRIES)
+    nnz0 = int(S.indptr[band0])
+    scale = coo_spmv_plain(S.row[:nnz0], S.col[:nnz0], S.val[:nnz0].abs().double(),
+                           x.abs().double(), band0).float()
+    for name, build in (("binned", parallel.sharded_spmv_binned_shardmap),
+                        ("coo", parallel.sharded_spmv_colsort_shardmap)):
+        op = build(S, mesh)
+        a, rows, nnz = op.arrays[0], band0, nnz0
+        if name == "binned":
+            def plain(a=a, rows=rows):
+                return binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
+                                         a["bins"], x, rows)
+            useful = nnz * 8 + (rows + 1) * 4 + (S.num_cols + rows) * 4
+        else:
+            def plain(a=a, rows=rows):
+                return coo_spmv_plain(a["row"], a["col"], a["val"], x, rows)
+            useful = nnz * 12 + (S.num_cols + rows) * 4
+        S0 = band_csr(S, 0, rows)
+        compare(f"row 12: {name} on band 0 of {MESH_ENTRIES} of the skewed 1M-row "
+                f"matrix ({rows} rows, {nnz} entries)",
+                lambda op=op, a=a: op.band_apply(a, x, 0), plain, RAIL_RTOL,
+                RAIL_ATOL, useful, 2 * nnz, triad_gbps,
+                library=lambda S0=S0: S0 @ x, samples=RAIL_SAMPLES, scale=scale)
+    return records
+
+
+def timed_turns(fns, turns=("a", "b", "b", "a")):
+    """Host seconds of each callable, run in turns, median per key."""
+    times = {k: [] for k in fns}
+    for k in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fns[k]()
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0, out))
+    return times
+
+
+def rel_diff(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def multidevice_phase(device, A_csr, b, cgcu_its, cgcu_rel, M, b_amg, amg_its,
+                      matrices):
+    """The multidevice path; returns its launch counts."""
+    from cusp_autotuned_tpu_torch import autotune, eigen, gallery, parallel, solvers
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+    from cusp_autotuned_tpu_torch.parallel import ShardedPlannedOperator
+    from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
+    import scipy.sparse as sp
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=True, capture_output=True,
+                       text=True).stdout.strip()
+        + f"; torch.cuda.device_count() {torch.cuda.device_count()}")
+    mesh = parallel.make_row_mesh([device] * MESH_ENTRIES)
+    log(f"multidevice: a mesh of {MESH_ENTRIES} entries on {mesh.devices[0]} "
+        f"(one card; the same code drives {MESH_ENTRIES} cards)")
+    D = convert(A_csr, "dia")
+    # the Economics system of __graft_entry__.py:277-278, made before the path
+    Se = gallery.williams_suite(SUITE_SCALE, names=["Economics"])["Economics"]
+    Se = Se.astype(np.float32).tocsr()
+    Se = (0.5 * (Se + Se.T)).tocsr()
+    Se = (Se + sp.diags(np.abs(Se).sum(axis=1).A1 + 1.0)).tocsr()
+    Ae = from_scipy(Se, "csr", dtype=torch.float32, device=device)
+    del Se
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+
+    # cg.cu through the banded via_dia plan
+    op = parallel.shard_planned_dia(D, mesh)
+    x, mon, solve_s = solve(op, b)
+    its, rel = mon.iteration_count(), mon.residual_norm() / mon.b_norm
+    log(f"multidevice: cg.cu through {op.impl}: {its} iterations (cg.cu path "
+        f"{cgcu_its}), relative residual {rel:.6e} (cg.cu path {cgcu_rel:.6e}), "
+        f"solve {solve_s:.3f} s")
+    if its != cgcu_its or abs(rel - cgcu_rel) > 1e-3 * cgcu_rel \
+            or not torch.isfinite(x).all():
+        raise RuntimeError("multidevice: the banded cg.cu solve differs from the "
+                           "cg.cu path's")
+    X16 = seeded_block(D.num_cols, 16, 23, device)
+    Y16 = op(X16)
+    Y_plain, scale = plain_product(A_csr, X16)
+    err = check_block("banded via_dia at k = 16", Y16, Y_plain, scale, "multidevice")
+    log(f"multidevice: banded via_dia block apply at k = 16: max abs err {err:.3e} "
+        f"against the plain product")
+
+    # the fixed-iteration solvers, 25 iterations each
+    xs = {"distributed_cg": parallel.distributed_cg(D, b, mesh)[0],
+          "distributed_cg_shardmap": parallel.distributed_cg_shardmap(D, b, mesh)[0],
+          "distributed_cg_halo": parallel.distributed_cg_halo(D, b, mesh)[0],
+          "distributed_cg_binned": parallel.distributed_cg_binned(A_csr, b, mesh)[0]}
+    xb, rb = parallel.distributed_bicgstab(A_csr, b, mesh)
+    ref = xs["distributed_cg"]
+    diffs = {k: rel_diff(v, ref) for k, v in xs.items()}
+    log(f"multidevice: 25 iterations each, x against distributed_cg's (relative "
+        f"2-norm): {diffs}; distributed_bicgstab residual {float(rb):.4e}")
+    if max(diffs.values()) > SHARDED_CG_RTOL or not torch.isfinite(xb).all():
+        raise RuntimeError("multidevice: the distributed CG variants disagree")
+
+    # cg(A_csr, b, mesh=) on b = A x_true, against the unsharded CSR kernel solve
+    x_m, mon_m = solvers.cg(A_csr, b_amg, monitor=Monitor(b_amg, 2000, 1e-5),
+                            mesh=mesh)
+    x_s, mon_s = solvers.cg(planned_operator(A_csr), b_amg,
+                            monitor=Monitor(b_amg, 2000, 1e-5))
+    log(f"multidevice: cg(A_csr, b, mesh=) {mon_m.iteration_count()} iterations, "
+        f"converged {mon_m.converged()}; unsharded CSR kernel "
+        f"{mon_s.iteration_count()}")
+    if not mon_m.converged() or mon_m.iteration_count() != mon_s.iteration_count():
+        raise RuntimeError("multidevice: cg(mesh=) differs from the unsharded solve")
+
+    # queue row 12 at 1M rows
+    S = matrices["random 1M rows, skewed"]
+    xr = seeded_x(S.num_cols, 24, device)
+    y_plain, _ = plain_product(S, xr)
+    for name, build in (("binned", parallel.sharded_spmv_binned_shardmap),
+                        ("colsort", parallel.sharded_spmv_colsort_shardmap)):
+        e = rel_diff(build(S, mesh)(xr), y_plain)
+        log(f"multidevice: sharded {name} SpMV on the skewed 1M-row matrix: "
+            f"||y - y_plain|| / ||y_plain|| {e:.3e}")
+        if e > ROW12_RTOL:
+            raise RuntimeError(f"multidevice: sharded {name} SpMV differs")
+
+    # AMG-CG over the mesh with the amg path's hierarchy
+    A_op = autotune.tuned_operator(A_csr, mesh=mesh)
+    t0 = time.perf_counter()
+    Md = parallel.distribute_multilevel(M, mesh)
+    setup_s = time.perf_counter() - t0
+    if not isinstance(Md.levels[0].Aop, ShardedPlannedOperator) \
+            or A_op.impl != "via_dia_sharded":
+        raise RuntimeError(f"multidevice: level 0's A is {Md.levels[0].Aop.impl}, "
+                           f"tuned_operator(A, mesh=) {A_op.impl}")
+    describe_levels(Md)
+    x_a, mon_a = solvers.cg(A_op, b_amg, M=Md, monitor=Monitor(b_amg, 2000, 1e-5),
+                            mesh=mesh)
+    log(f"multidevice: AMG-CG(mesh=) {mon_a.iteration_count()} iterations (amg "
+        f"path {amg_its}), converged {mon_a.converged()}; distribute_multilevel "
+        f"{setup_s:.2f} s; tuned_operator(A, mesh=) {A_op.impl}")
+    if mon_a.iteration_count() != amg_its or not mon_a.converged():
+        raise RuntimeError("multidevice: AMG-CG(mesh=) differs from the amg path")
+
+    # shard_planned_blocks: routed on Economics, colsort2 on the power-law matrix
+    cfg = {"impl": "routed", **ROUTED_CONFIG}
+    op_r = parallel.shard_planned_blocks(Ae, mesh, cfg)
+    be = torch.ones(Ae.num_rows, device=device)
+    _, m_r = solvers.cg(op_r, be, monitor=Monitor(be, 500, 1e-6))
+    _, m_1 = solvers.cg(planned_operator(Ae, cfg), be, monitor=Monitor(be, 500, 1e-6))
+    log(f"multidevice: CG on Economics {Ae.num_rows} rows through {op_r.impl}: "
+        f"{m_r.iteration_count()} iterations, single-device routed "
+        f"{m_1.iteration_count()}")
+    if not m_r.converged() or m_r.iteration_count() != m_1.iteration_count():
+        raise RuntimeError("multidevice: the sharded routed CG differs")
+    P = matrices["power-law 1M rows"]
+    op_c = parallel.shard_planned_blocks(P, mesh, {"impl": "colsort2",
+                                                   **COLSORT2_CONFIG})
+    xp = seeded_x(P.num_cols, 25, device)
+    yp_plain, scale = plain_product(P, xp)
+    err = check_block("sharded colsort2 on the power-law matrix", op_c(xp),
+                      yp_plain, scale, "multidevice")
+    log(f"multidevice: {op_c.impl} ({op_c.out_mode}) on the power-law 1M-row "
+        f"matrix: max abs err {err:.3e} against the plain product")
+
+    # lanczos(mesh=) against the unsharded CSR-kernel operator
+    lam_m = float(eigen.lanczos(A_csr, mesh=mesh)[0])
+    lam_s = float(eigen.lanczos(planned_operator(A_csr))[0])
+    log(f"multidevice: lanczos(mesh=) lambda_max {lam_m:.7f}, unsharded {lam_s:.7f}")
+    if lam_m != lam_s:
+        raise RuntimeError("multidevice: lanczos(mesh=) differs")
+    launches = read_counts()
+    log(f"multidevice: path in {time.perf_counter() - t_path:.1f} s; launches "
+        f"{launches}")
+
+    # timing: sharded against unsharded SpMV at 1M rows, and a CG iteration
+    whole = planned_operator(A_csr, {"impl": "via_dia"})
+    xt = seeded_x(A_csr.num_cols, 26, device)
+    for name, fn in (("unsharded via_dia", whole), (op.impl, op)):
+        before = read_counts()
+        fn(xt)
+        per_call = {k: v - before[k] for k, v in read_counts().items()
+                    if v > before[k]}
+        dev, kern, host = launch_calls(lambda: fn(xt), PER_SAMPLE)
+        log(f"multidevice: SpMV {name}: {median_ms(lambda: fn(xt)):.4f} ms/call, "
+            f"{dev:.4f} ms device (profiler, every kernel of a call), {kern:.1f} "
+            f"kernels and {host:.1f} launch calls a call (wrappers {per_call})")
+    turns = timed_turns({"a": lambda: solve(whole, b), "b": lambda: solve(op, b)})
+    for k, name in (("a", "unsharded via_dia"), ("b", op.impl)):
+        ms = [1e3 * s / max(out[1].iteration_count(), 1) for s, out in turns[k]]
+        dev, kern, host = launch_calls(
+            lambda: solvers.cg(whole if k == "a" else op, b,
+                               monitor=Monitor(b, 32, 0.0)), 1)
+        log(f"multidevice: CG {name}: {statistics.median(ms):.4f} ms/iteration "
+            f"({', '.join(f'{v:.4f}' for v in ms)}), {kern / 32:.1f} kernels, "
+            f"{host / 32:.1f} launch calls and {dev / 32:.4f} ms device an "
+            f"iteration")
     return launches
 
 
@@ -1519,24 +1835,31 @@ def main():
     records.update(rails_spmm_phase(device, triad_gbps, matrices))
     records.update(new_rails_phase(device, triad_gbps, matrices))
     records["take_probe"] = take_probe_phase(device, triad_gbps)
-    for name in ("uniform random 1M x 1M", "power-law 1M rows"):
-        del matrices[name]
+    records.update(band_phase(device, triad_gbps,
+                              matrices["poisson5pt 1000x1000 f32"],
+                              matrices["random 1M rows, skewed"]))
+    del matrices["uniform random 1M x 1M"]
 
-    cg_launches, b, viadia_its = cg_phase(
+    cg_launches, b, viadia_its, viadia_rel = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
-    amg_launches = amg_phase(device)
+    amg_launches, amg_its, M, b_amg = amg_phase(device)
+    mesh_launches = multidevice_phase(
+        device, matrices["poisson5pt 1000x1000 f32"], b, viadia_its, viadia_rel,
+        M, b_amg, amg_its, matrices)
+    del M, b_amg, matrices["power-law 1M rows"]
     tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its)
     spmm_launches = spmm_phase(device, matrices)
     del matrices
     suite_launches = suite_phase(device)
-    log(f"launches: cg.cu path {cg_launches}; amg path {amg_launches}; autotune "
-        f"path {tuned_launches}; spmm path {spmm_launches}; suite path "
-        f"{suite_launches}")
+    log(f"launches: cg.cu path {cg_launches}; amg path {amg_launches}; "
+        f"multidevice path {mesh_launches}; autotune path {tuned_launches}; spmm "
+        f"path {spmm_launches}; suite path {suite_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
-        [k for k in SUITE_KERNELS if suite_launches[k] < 1]
+        [k for k in SUITE_KERNELS if suite_launches[k] < 1] + \
+        [k for k in MULTIDEVICE_KERNELS if mesh_launches[k] < 1]
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
     within = [line for line in MODEL_LINES if line[2] <= MODEL_RATIO * line[4]]
@@ -1570,6 +1893,10 @@ def main():
                         "cusp_autotuned_tpu/kernels/pallas_routed.py:426"),
         "take_probe": ("take_probe.cu",
                        "cusp_autotuned_tpu/autotune/calibrate.py:144"),
+        "dia_band_spmv": ("dia_spmv.cu",
+                          "cusp_autotuned_tpu/parallel/sharded_plans.py:154"),
+        "dia_band_spmm": ("dia_spmm.cu",
+                          "cusp_autotuned_tpu/parallel/sharded_plans.py:154"),
     }
     kernels = []
     for name in KERNELS:
@@ -1580,8 +1907,8 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": (cg_launches[name] + amg_launches[name]
-                         + tuned_launches[name] + spmm_launches[name]
-                         + suite_launches[name]),
+                         + mesh_launches[name] + tuned_launches[name]
+                         + spmm_launches[name] + suite_launches[name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

@@ -465,15 +465,32 @@ def tuned_operator(A, x=None, tune_first: bool = False, mesh=None):
     """The global tuner's best known configuration for A as a solver
     operator (operators.planned_operator): with no results for A, the cost
     model's pick.  tune_first=True walks the space first when it holds no
-    results for A.  mesh= waits for the multi-device slice."""
+    results for A.
+
+    mesh: a parallel.RowMesh partitions the plan over the mesh: via_dia (or
+    the DIA kernel on a DIA matrix) as row-banded diagonals
+    (shard_planned_dia), binned, colsort2 and routed by parts of the rows
+    (shard_planned_blocks).  Any other configuration has no sharded form:
+    it is planned on the home device as it is, its impl marked
+    `_replicated`.  A plan that fails raises."""
     from cusp_autotuned_tpu_torch.operators import planned_operator
-    if mesh is not None:
-        raise NotImplementedException(
-            "tuned_operator(mesh=...) needs the multi-device port")
     tuner = get_tuner()
     if tune_first and not tuner.results.get(matrix_signature(A, x)):
         tuner.tune(A, x if x is not None else _ones(A))
-    return planned_operator(A, tuner.best_configuration(A, x))
+    cfg = tuner.best_configuration(A, x)
+    if mesh is None:
+        return planned_operator(A, cfg)
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+    from cusp_autotuned_tpu_torch.parallel.sharded import replicated_operator
+    from cusp_autotuned_tpu_torch.parallel.sharded_plans import (
+        RAILS, shard_planned_blocks, shard_planned_dia)
+    impl = cfg.get("impl")
+    if impl in RAILS:
+        return shard_planned_blocks(A, mesh, config=cfg)
+    if impl == "via_dia" or (A.format == "dia" and impl == "cuda"):
+        keep = {k: v for k, v in cfg.items() if k in ("value_dtype", "block_size")}
+        return shard_planned_dia(convert(A, "dia"), mesh, config=keep)
+    return replicated_operator(planned_operator(A, cfg))
 
 
 def choose_format(A, x=None, formats=TUNABLE_FORMATS,

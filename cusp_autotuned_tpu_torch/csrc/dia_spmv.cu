@@ -33,6 +33,49 @@ __global__ void dia_spmv_kernel(const Store* __restrict__ data,
   }
 }
 
+// One row band of a DIA matrix, the counterpart of the JAX package's banded
+// via_dia plan (parallel/sharded_plans.py:105, its pallas_call at :154 on
+// _dia_kernel): y[i] = sum_d data[d * pitch + i] * x_pad[left + row0 + i +
+// offsets[d]] for the band's rows i < band.  data is the band's (k, band)
+// slice, a copy of its own (pitch = band) or a view of the whole matrix's
+// data (pitch = its rows).  x_pad is the replicated x padded with `left`
+// zeros in front and enough behind, as _dia_kernel reads its shifted window
+// (kernels/pallas_dia.py:393): so there is no bounds test here; the wrapper
+// checks x_pad's length against the offsets instead.  An out-of-matrix slot
+// holds 0 in data and meets a padding 0 in x_pad, so the sum adds 0 where
+// dia_spmv_kernel skips the slot, and each row is summed in the same order.
+// The same bound by bytes as dia_spmv_kernel.
+template <typename Store, typename Acc>
+__global__ void dia_band_spmv_kernel(const Store* __restrict__ data,
+                                     const int* __restrict__ offsets, int k,
+                                     long long pitch,
+                                     const Acc* __restrict__ x_pad,
+                                     long long base, Acc* __restrict__ y,
+                                     int band) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < band; i += stride) {
+    const Acc* xi = x_pad + base + i;
+    Acc acc = 0;
+    for (int d = 0; d < k; ++d)
+      acc += to_acc<Acc>(data[d * pitch + i]) * xi[__ldg(offsets + d)];
+    y[i] = acc;
+  }
+}
+
+template <typename Store, typename Acc>
+static int launch_band(const void* data, const void* offsets, int k,
+                       long long pitch, const void* x_pad, long long left,
+                       long long row0, void* y, int band, int block,
+                       void* stream) {
+  dia_band_spmv_kernel<Store, Acc><<<grid_for(band, block), block, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Store*>(data), static_cast<const int*>(offsets), k,
+      pitch, static_cast<const Acc*>(x_pad), left + row0, static_cast<Acc*>(y),
+      band);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Store, typename Acc>
 static int launch(const void* data, const void* offsets, int k, long long pitch,
                   const void* x, void* y, int m, int n, int block,
@@ -65,6 +108,30 @@ int cusp_dia_spmv_f64(const void* data, const void* offsets, int k,
                       int block, void* stream) {
   return launch<double, double>(data, offsets, k, pitch, x, y, m, n, block,
                                 stream);
+}
+
+int cusp_dia_band_spmv_f32(const void* data, const void* offsets, int k,
+                           long long pitch, const void* x_pad, long long left,
+                           long long row0, void* y, int band, int block,
+                           void* stream) {
+  return launch_band<float, float>(data, offsets, k, pitch, x_pad, left, row0,
+                                   y, band, block, stream);
+}
+
+int cusp_dia_band_spmv_bf16(const void* data, const void* offsets, int k,
+                            long long pitch, const void* x_pad, long long left,
+                            long long row0, void* y, int band, int block,
+                            void* stream) {
+  return launch_band<__nv_bfloat16, float>(data, offsets, k, pitch, x_pad,
+                                           left, row0, y, band, block, stream);
+}
+
+int cusp_dia_band_spmv_f64(const void* data, const void* offsets, int k,
+                           long long pitch, const void* x_pad, long long left,
+                           long long row0, void* y, int band, int block,
+                           void* stream) {
+  return launch_band<double, double>(data, offsets, k, pitch, x_pad, left,
+                                     row0, y, band, block, stream);
 }
 
 }  // extern "C"

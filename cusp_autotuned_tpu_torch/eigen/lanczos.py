@@ -12,7 +12,6 @@ import scipy.linalg as sla
 import torch
 
 from cusp_autotuned_tpu_torch.eigen.spectral_radius import _lanczos_tridiag
-from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
 
 @dataclasses.dataclass
@@ -31,9 +30,11 @@ def lanczos(A, options: LanczosOptions | None = None, *, return_eigvecs=False,
     of an (n, num_eigvals) tensor) of a symmetric A: a Lanczos
     tridiagonalization with full reorthogonalization on A's device, then
     the tridiagonal eigenproblem on the host (the lapack stev path).  The
-    results land on A's device.  mesh= waits for the multi-device slice."""
+    results land on A's device.  mesh: a parallel.RowMesh row-shards a
+    sparse A over the mesh; the Lanczos vectors stay on its home device."""
     if mesh is not None:
-        raise NotImplementedException("lanczos(mesh=...) needs the multi-device port")
+        from cusp_autotuned_tpu_torch.parallel.sharded import distribute_for_solve
+        A = distribute_for_solve(A, mesh)[0]
     options = options or LanczosOptions()
     k = min(options.iteration_limit, A.num_rows)
     alphas, betas, V = _lanczos_tridiag(A, k, options.seed)

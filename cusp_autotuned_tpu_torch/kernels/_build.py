@@ -39,6 +39,12 @@ _SIGNATURES = {
     # data, offsets, k, pitch, x, y, m, n, block, stream
     "cusp_dia_spmv": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32, _vp),
                       _TYPED),
+    # data, offsets, k, pitch, x_pad, left, row0, y, band, block, stream
+    "cusp_dia_band_spmv": ((_vp, _vp, _i32, _i64, _vp, _i64, _i64, _vp, _i32,
+                            _i32, _vp), _TYPED),
+    # data, offsets, ndiag, pitch, X_pad, left, row0, Y, band, k, block, stream
+    "cusp_dia_band_spmm": ((_vp, _vp, _i32, _i64, _vp, _i64, _i64, _vp, _i32,
+                            _i32, _i32, _vp), _TYPED),
     # indptr, col, val, x, y, m, block, stream
     "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp), _TYPED),
     # indptr, col, val, perm, bins (host), nbins, x, y, block, stream

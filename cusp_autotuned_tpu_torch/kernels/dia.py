@@ -1,13 +1,17 @@
 """DIA SpMV and SpMM: the CUDA kernels' wrappers, their plain PyTorch
-version, and the plan builder.
+version, and the plan builder; and the same two products on one row band
+of the matrix against a replicated, padded x, the kernels of the banded
+via_dia plan (parallel/sharded_plans.py).
 
 Replaces the JAX package's Pallas DIA kernels, `_dia_kernel`
 (cusp_autotuned_tpu/kernels/pallas_dia.py:393) and `_dia_streamed_kernel`
 (:240), with one CUDA kernel, `csrc/dia_spmv.cu`, and its SpMM kernel
 `_dia_spmm_kernel` (:381, with the XLA path for k <= 64, :271) with one
-kernel for every k, `csrc/dia_spmm.cu`.  Both are bound by bytes: ndiag·rows
-of diagonal data in the storage type, plus x read and y written once; see
-the sources for their design.
+kernel for every k, `csrc/dia_spmm.cu`.  The banded plan's `_dia_kernel`
+(cusp_autotuned_tpu/parallel/sharded_plans.py:154) becomes the band entry
+points of the same two sources.  All are bound by bytes: ndiag·rows of
+diagonal data in the storage type, plus x read and y written once; see the
+sources for their design.
 """
 
 from __future__ import annotations
@@ -122,6 +126,107 @@ def dia_spmm(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
 
 
 dia_spmm.launches = 0
+
+
+def dia_band_spmv_plain(data, offsets, x_pad, left, row0):
+    """y = the rows [row0, row0 + band) of A @ x, band = data.shape[1], for
+    the band's diagonals `data` (ndiag, band) and the padded x_pad, which
+    holds x[j] at left + j: one shifted slice of x_pad a diagonal, added in
+    offset order in the promoted type of data and x_pad.  x_pad may be (n,)
+    or (n, k): this is the plain version of both band kernels, also named
+    dia_band_spmm_plain."""
+    x_pad = promoted(data, x_pad)
+    band = data.shape[1]
+    base = left + row0
+    acc = None
+    for d, off in enumerate(offsets):
+        seg = x_pad[base + off: base + off + band]
+        term = _scale(data[d].to(x_pad.dtype), seg)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+dia_band_spmm_plain = dia_band_spmv_plain
+
+
+def _check_band(data, offsets, x_pad, left, row0, reach, rank):
+    """Raise on what the band kernels do not take.  They read x_pad without
+    bounds tests, so its rows must cover every offset of every band row."""
+    nd, band = data.shape
+    if not (data.device == offsets.device == x_pad.device) \
+            or x_pad.device.type != "cuda":
+        raise InvalidInputException(
+            f"DIA band kernel needs data, offsets and x_pad on one CUDA device "
+            f"(got {data.device}, {offsets.device}, {x_pad.device})")
+    if data.dtype not in _build.STORAGE or x_pad.dtype != _build.STORAGE[data.dtype][1]:
+        raise InvalidInputException(
+            f"DIA band kernel takes f32/bf16 data with f32 x, or f64 with f64 "
+            f"(got {data.dtype} data, {x_pad.dtype} x)")
+    if offsets.dtype != torch.int32 or offsets.shape != (nd,):
+        raise InvalidInputException("offsets must be int32 of shape (ndiag,)")
+    if data.stride(1) != 1 or data.stride(0) < band or not (
+            offsets.is_contiguous() and x_pad.is_contiguous()):
+        raise InvalidInputException(
+            "DIA band kernel needs rows of data at unit stride, and "
+            "contiguous offsets and x_pad")
+    if x_pad.dim() != rank or (rank == 2 and x_pad.shape[1] < 1):
+        raise InvalidInputException(f"x_pad of shape {tuple(x_pad.shape)}")
+    lo, hi = reach
+    if min(left, row0) < 0 or left + row0 + lo < 0 \
+            or left + row0 + band + hi > x_pad.shape[0]:
+        raise InvalidInputException(
+            f"x_pad of {x_pad.shape[0]} rows does not cover band rows "
+            f"[{row0}, {row0 + band}) at offsets {lo}..{hi} (left {left})")
+
+
+def dia_band_spmv(data, offsets, x_pad, left, row0, reach,
+                  block=_build.DEFAULT_BLOCK):
+    """y = the rows [row0, row0 + band) of A @ x for one row band: data
+    (ndiag, band), a copy of its own or a view of the whole matrix's data
+    with rows at unit stride; int32 offsets (ndiag,); x_pad, which holds
+    x[j] at left + j and zeros around it; reach, the least and the greatest
+    offset (host ints: the kernel reads x_pad without bounds tests, so the
+    wrapper checks it).  On CPU tensors this is the plain version; on CUDA
+    tensors it launches the band kernel (a 2-D x_pad goes to
+    dia_band_spmm), and raises on what the kernel does not take."""
+    if x_pad.dim() == 2:
+        return dia_band_spmm(data, offsets, x_pad, left, row0, reach, block)
+    if x_pad.device.type == "cpu" and data.device.type == "cpu":
+        return dia_band_spmv_plain(data, tuple(offsets.tolist()), x_pad, left, row0)
+    _check_band(data, offsets, x_pad, left, row0, reach, 1)
+    band = data.shape[1]
+    y = torch.empty(band, dtype=x_pad.dtype, device=x_pad.device)
+    if band:
+        _build.launch("cusp_dia_band_spmv", data.dtype, x_pad.device, data,
+                      offsets, data.shape[0], data.stride(0), x_pad, left, row0,
+                      y, band, block)
+        dia_band_spmv.launches += 1
+    return y
+
+
+dia_band_spmv.launches = 0
+
+
+def dia_band_spmm(data, offsets, x_pad, left, row0, reach,
+                  block=_build.DEFAULT_BLOCK):
+    """Y = the rows [row0, row0 + band) of A @ X for one row band and a
+    padded dense row-major block x_pad (rows, k): the plain version on CPU
+    tensors, one launch of the band SpMM kernel for all k columns on CUDA
+    tensors."""
+    if x_pad.device.type == "cpu" and data.device.type == "cpu":
+        return dia_band_spmv_plain(data, tuple(offsets.tolist()), x_pad, left, row0)
+    _check_band(data, offsets, x_pad, left, row0, reach, 2)
+    band, k = data.shape[1], x_pad.shape[1]
+    y = torch.empty((band, k), dtype=x_pad.dtype, device=x_pad.device)
+    if band:
+        _build.launch("cusp_dia_band_spmm", data.dtype, x_pad.device, data,
+                      offsets, data.shape[0], data.stride(0), x_pad, left, row0,
+                      y, band, k, block)
+        dia_band_spmm.launches += 1
+    return y
+
+
+dia_band_spmm.launches = 0
 
 
 def build_dia(A, config):

@@ -45,6 +45,7 @@ class FunctionOperator(_Shaped):
     dtype: Any = None              # the planned matrix's, where known
     device: Any = None
     impl: str = ""                 # the plan's impl, where planned from a matrix
+    config: Any = None             # the configuration it was planned with
 
     format = "function_operator"
 
@@ -176,6 +177,15 @@ OPERATOR_TYPES = (IdentityOperator, FunctionOperator, PlannedOperator,
                   StructuredTentative, StructuredTentativeT)
 
 
+def register_operator_type(cls):
+    """Class decorator: `multiply` and `as_operator` apply instances of cls
+    as operators (the row-sharded matrices and plans of parallel/)."""
+    global OPERATOR_TYPES
+    if cls not in OPERATOR_TYPES:
+        OPERATOR_TYPES = OPERATOR_TYPES + (cls,)
+    return cls
+
+
 def planned_operator(A, config=None):
     """Build the configured SpMV for A as a PlannedOperator when the builder
     exposes its planned tensors (the cuda kernels), else as a
@@ -191,7 +201,8 @@ def planned_operator(A, config=None):
                                device=A.device)
     impl = getattr(fn, "plan_stats", {}).get("impl", str(cfg.get("impl", "")))
     return FunctionOperator(fn=fn, shape=tuple(A.shape), dtype=A.dtype,
-                            device=A.device, impl=impl)
+                            device=A.device, impl=impl,
+                            config=tuple(sorted(cfg.items())))
 
 
 def as_operator(M):

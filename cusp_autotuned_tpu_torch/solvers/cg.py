@@ -27,10 +27,21 @@ from cusp_autotuned_tpu_torch.solvers.monitor import Monitor, default_monitor
 CHECK_EVERY = 32
 
 
-def cg(A, b, x0=None, monitor: Monitor | None = None, M=None):
+def cg(A, b, x0=None, monitor: Monitor | None = None, M=None, mesh=None):
     """Solve A x = b.  Returns (x, monitor).  b (and x0) are tensors on the
-    device that A computes on."""
+    device that A computes on.
+
+    mesh: a parallel.RowMesh distributes the solve: a sparse A is
+    row-sharded over the mesh (row-aligned for COO/CSR), an AMG hierarchy M
+    is distributed (distribute_multilevel), and b and x0 go to the mesh's
+    home device, where the loop's vectors and dot products stay."""
     b = torch.as_tensor(b)
+    if mesh is not None:
+        from cusp_autotuned_tpu_torch.parallel.sharded import (
+            distribute_for_solve, distribute_multilevel)
+        if hasattr(M, "levels"):
+            M = distribute_multilevel(M, mesh)
+        A, b, x0 = distribute_for_solve(A, mesh, b, x0)
     if monitor is None:
         monitor = default_monitor(b)
     M = as_operator(M)

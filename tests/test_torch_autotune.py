@@ -348,8 +348,10 @@ def test_untuned_best_is_the_default_and_channels_do_not_fall_back():
         Tuner(timing_channel="cuda_events").tune(A, torch.ones(64))
     with pytest.raises(ValueError):
         Tuner(timing_channel="wall")
-    with pytest.raises(NotImplementedException):
-        autotune.tuned_operator(A, mesh=object())
+    # mesh= partitions the pick over the mesh (tests/test_torch_parallel.py)
+    from cusp_autotuned_tpu_torch.parallel import make_row_mesh
+    op = autotune.tuned_operator(A, mesh=make_row_mesh([torch.device("cpu")] * 2))
+    assert op.impl.endswith(("_sharded", "_replicated"))
 
 
 def test_tuned_operator_cg_matches_jax_iterations(global_tuner):

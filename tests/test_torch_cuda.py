@@ -654,3 +654,83 @@ def test_smoothed_aggregation_plans_on_card(cuda_device):
         torch.testing.assert_close(M(b), plain(b), rtol=1e-5, atol=1e-5)
         x, mon = solvers.cg(A, b, M=M, monitor=Monitor(b, 200, 1e-5))
         assert mon.converged() and mon.iteration_count() < 40
+
+
+# -- the multi-device path on one card: the DIA band kernels and sharded plans
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("dtype,store", [(torch.float32, None),
+                                         (torch.float32, torch.bfloat16),
+                                         (torch.float64, None)])
+def test_dia_band_kernels_match_plain_on_card(cuda_device, dtype, store, k):
+    """Every band of a banded via_dia plan against the band's plain version
+    (rtol 1e-6: the same products added in the same order) and against the
+    unsharded DIA kernel's rows."""
+    from cusp_autotuned_tpu_torch.kernels.dia import (
+        _pad_rows, dia_band_spmm, dia_band_spmv, dia_band_spmv_plain)
+    from cusp_autotuned_tpu_torch.parallel.sharded_plans import dia_bands
+    S = sp.diags([np.random.RandomState(d).uniform(0.5, 2.0, 3000) for d in range(5)],
+                 [-301, -1, 0, 2, 640], shape=(3000, 3000))
+    D = from_scipy(S, "dia", dtype=dtype, device=cuda_device)
+    data, band, left, x_rows = dia_bands(D, 4)
+    data = data.to(store or dtype)
+    offsets = torch.tensor(D.offsets, dtype=torch.int32, device=cuda_device)
+    x = torch.as_tensor(np.random.RandomState(5).randn(3000, k), dtype=dtype,
+                        device=cuda_device)
+    x = x[:, 0].contiguous() if k == 1 else x
+    x_pad = _pad_rows(x, left, x_rows - left - 3000)
+    reach = (min(D.offsets), max(D.offsets))
+    whole = dia_spmv(data[:, :3000].contiguous(), offsets, x, D.shape) if k == 1 \
+        else dia_spmm(data[:, :3000].contiguous(), offsets, x, D.shape)
+    wrapper = dia_band_spmv if k == 1 else dia_band_spmm
+    for i in range(4):
+        before = wrapper.launches
+        y = wrapper(data[:, i * band:(i + 1) * band], offsets, x_pad, left,
+                    i * band, reach)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        yp = dia_band_spmv_plain(data[:, i * band:(i + 1) * band], D.offsets,
+                                 x_pad, left, i * band)
+        torch.testing.assert_close(y, yp, rtol=1e-6, atol=1e-6)
+        rows = whole[i * band:(i + 1) * band]
+        torch.testing.assert_close(y[:rows.shape[0]], rows, rtol=1e-6, atol=1e-6)
+    with pytest.raises(InvalidInputException):
+        wrapper(data[:, :band], offsets, x_pad[:-1], left, 3 * band, reach)
+
+
+def test_sharded_operators_keep_vectors_on_card(cuda_device):
+    """A mesh of four entries on one card: the banded DIA plan, a
+    block-partitioned plan and a row-sharded CSR take x on the card and
+    return y there, through their kernels, and match the oracle."""
+    from cusp_autotuned_tpu_torch import parallel
+    from cusp_autotuned_tpu_torch.kernels.dia import dia_band_spmv
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+    mesh = parallel.make_row_mesh([cuda_device] * 4)
+    A = gallery.poisson5pt(60, 70, format="csr", device=cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    want = reference_spmv(A, x)
+    before = (dia_band_spmv.launches, binned_spmv.launches, csr_spmv.launches)
+    ops = (parallel.shard_planned_dia(convert(A, "dia"), mesh),
+           parallel.shard_planned_blocks(A, mesh, {"impl": "binned"}),
+           parallel.shard_rows(A, mesh))
+    for op in ops:
+        y = op(x)
+        assert y.device.type == "cuda" and y.shape == (A.num_rows,)
+        np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5, atol=1e-5)
+    after = (dia_band_spmv.launches, binned_spmv.launches, csr_spmv.launches)
+    assert all(a - b >= 4 for a, b in zip(after, before))
+    b = _x(A.num_rows, cuda_device, seed=8)
+    x_cg, mon = solvers.cg(A, b, monitor=Monitor(b, 500, 1e-5), mesh=mesh)
+    assert mon.converged() and x_cg.device.type == "cuda"
+
+
+@pytest.mark.parametrize("fmt", ["dia", "csr"])
+def test_kernels_refuse_complex_at_build_time_on_card(cuda_device, fmt):
+    S = (sp.random(40, 40, density=0.1, random_state=np.random.RandomState(2))
+         + sp.eye(40)).astype(np.complex64)
+    A = from_scipy(S, fmt, device=cuda_device)
+    with pytest.raises(NotImplementedException):
+        build_spmv(A, {"impl": "cuda"})
+    assert default_config(A)["impl"] != "cuda"
+    y = planned_operator(A)(torch.ones(40, dtype=torch.complex64, device=cuda_device))
+    np.testing.assert_allclose(y.cpu().numpy(), S @ np.ones(40), rtol=1e-5)

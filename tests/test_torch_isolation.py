@@ -31,6 +31,8 @@ SLICE_MODULES = (
     "precond.aggregation.strength", "precond.aggregation.aggregate",
     "precond.aggregation.tentative", "precond.aggregation.smooth",
     "precond.aggregation.structured_rap", "native",
+    "kernels.streaming", "parallel", "parallel.sharded",
+    "parallel.shard_map_spmv", "parallel.sharded_plans",
 )
 
 
