@@ -42,7 +42,7 @@ from cusp_autotuned_tpu_torch.relaxation import jacobi
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 RHO_RTOL = 1e-10
 MATRIX_RTOL = 1e-12

@@ -17,7 +17,7 @@ from cusp_autotuned_tpu_torch import gallery, solvers
 from cusp_autotuned_tpu_torch.operators import PlannedOperator, planned_operator
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 cg_module = importlib.import_module("cusp_autotuned_tpu_torch.solvers.cg")
 

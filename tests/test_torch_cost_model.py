@@ -29,7 +29,7 @@ from cusp_autotuned_tpu_torch.autotune import (
 from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
 from cusp_autotuned_tpu_torch.kernels import default_config
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 TAKE_RTOL = 1e-6
 

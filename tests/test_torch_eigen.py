@@ -18,7 +18,7 @@ from cusp_autotuned_tpu_torch import eigen
 from cusp_autotuned_tpu_torch.operators import FunctionOperator, planned_operator
 from cusp_autotuned_tpu_torch.ops.multiply import multiply
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 RTOL = 1e-8
 # the module, which the package's `lobpcg` function shadows

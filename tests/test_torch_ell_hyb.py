@@ -23,7 +23,7 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException,
 )
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 from tests.util import example_matrices
 
 SOURCES = {

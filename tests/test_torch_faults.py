@@ -30,7 +30,7 @@ from cusp_autotuned_tpu_torch.kernels.dia import build_dia
 from cusp_autotuned_tpu_torch.ops.multiply import multiply
 from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 
 def _complex_random(n, density, seed, dtype):

@@ -19,7 +19,7 @@ from cusp_autotuned_tpu.utils.exceptions import (
     FormatConversionException as JaxFormatConversionException,
 )
 
-from tests.torch_parity import FIELDS, port_of
+from tests.torch_parity import FIELDS, one_thread, port_of  # noqa: F401
 
 
 def _assert_same_container(P, J):

@@ -27,7 +27,7 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     InvalidInputException, NotImplementedException,
 )
 
-from tests.torch_parity import banded, port_of, skewed_random
+from tests.torch_parity import banded, one_thread, port_of, skewed_random  # noqa: F401
 
 DIA_SHAPES = {
     # the five DIA shapes of tests/test_pallas.py:25-51, with seeded values

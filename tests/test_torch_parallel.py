@@ -30,7 +30,7 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     InvalidInputException, NotImplementedException,
 )
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 CPU = torch.device("cpu")
 SPMV_RTOL = 1e-5

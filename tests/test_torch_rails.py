@@ -33,7 +33,7 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
 )
 
-from tests.torch_parity import port_of
+from tests.torch_parity import one_thread, port_of  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)          # tests/test_pallas.py:161
 

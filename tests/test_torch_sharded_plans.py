@@ -39,7 +39,7 @@ from cusp_autotuned_tpu_torch.parallel.sharded_plans import dia_bands
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
 from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 
-from tests.torch_parity import port_of, skewed_random
+from tests.torch_parity import one_thread, port_of, skewed_random  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -46,7 +46,7 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     InvalidInputException, NotImplementedException,
 )
 
-from tests.torch_parity import banded, port_of
+from tests.torch_parity import banded, one_thread, port_of  # noqa: F401
 
 TOL = {np.float32: dict(rtol=1e-4, atol=1e-4), np.float64: dict(rtol=1e-10, atol=1e-10)}
 

@@ -2,7 +2,9 @@
 one input, built once from a numpy seed, handed to both packages."""
 
 import numpy as np
+import pytest
 import scipy.sparse as sp
+import torch
 
 from cusp_autotuned_tpu_torch import interop
 
@@ -41,3 +43,15 @@ def skewed_random(n, seed, max_len=64):
     S = sp.csr_matrix((val, col, indptr), shape=(n, n))
     S.sum_duplicates()
     return S
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests: they run many small ops,
+    and where several test processes share the cores a pool of threads per
+    process slows them many times over (a CG on eight mesh entries took 16
+    s instead of 0.8 on a loaded host)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
