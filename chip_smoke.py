@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Six main paths, each driven with every kernel's launch count set to 0
+Eight main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
@@ -60,7 +60,19 @@ just before it and read just after:
             and the best colsort2, routed, binned and colsort configurations
             in device ms, tuned_operator(A) applied once against the plain
             product, and a k = 16 block walk and tuned_operator(A, X) on
-            Economics.
+            Economics;
+  probes    the measurement path's probes: benchmarks.dia_probe.main()
+            (poisson5pt 1000x1000 f32, four modes at four block sizes and
+            build_dia in f32 and bf16), benchmarks.dia_spmm_probe.main()
+            (poisson5pt 1000x1000 at k = 16 and 128, 300x300 at k = 128,
+            six modes, the plain version and cuSPARSE), and
+            benchmarks.routed_probe.main() on williams_suite(2.0)'s
+            Economics and LP (five modes on two plans, build_routed in f32
+            and bf16), then harness.launch_floor_s() (a launch's cost back
+            to back and in a CUDA graph, and the host's share);
+  bench     cusp_autotuned_tpu_torch.bench.main(budget_s=BENCH_BUDGET_S)
+            in this process: its one JSON line (the DIA headline against
+            the triad, the cg.cu and AMG-CG rows, the rails' rates).
 
 Phases:
 
@@ -97,6 +109,16 @@ Phases:
                row band of poisson5pt 1000x1000 f32 over a mesh of four
                entries, a vector and k = 16, rtol 1e-6, and the banded
                product against the unsharded DIA kernel's
+  launch_floor, dia_probe, dia_spmm_probe, routed_probe
+               the measurement path's four kernels in every mode against
+               their plain versions (the launch floor bit for bit; DIA at
+               rtol 1e-5, atol 1e-4; routed at the rails' 1e-4 of each
+               row's sum of |a x|), and each probe's shipped mode against
+               the shipped kernel bit for bit (dia_probe full and nobounds
+               against dia_spmv at four block sizes; dia_spmm_probe
+               shipped, team=T and xtile against dia_spmm at k = 16, 3 and
+               128; routed_probe full and nostage against routed_spmv on
+               Economics and LP, two plans each), then the probes path
   take_probe   the take probe (both instantiations: x staged in shared
                memory, x read through L1/L2) against its plain version at
                64 tiles and 2, 3 and 18 passes, rtol 1e-6, then timed at
@@ -108,6 +130,7 @@ Phases:
   spmm         the spmm path
   suite        the suite path
   multidevice  the multidevice path
+  bench        the bench path
   model        for each matrix the autotune and suite paths walk, the cost
                model's pick (recommend_config) against the walk's leader,
                both timed again side by side as the tuner times them
@@ -154,7 +177,9 @@ SPMV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
 SPMM_KERNELS = ("dia_spmm", "binned_spmm", "coo_spmm")
 SUITE_KERNELS = ("colsort2_spmv", "routed_spmv", "colsort2_spmm", "routed_spmm")
 BAND_KERNELS = ("dia_band_spmv", "dia_band_spmm")
-KERNELS = SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS + ("take_probe",) + BAND_KERNELS
+PROBE_KERNELS = ("launch_floor", "dia_probe", "dia_spmm_probe", "routed_probe")
+KERNELS = (SPMV_KERNELS + SPMM_KERNELS + SUITE_KERNELS + ("take_probe",)
+           + BAND_KERNELS + PROBE_KERNELS)
 # the kernels the multidevice path must launch
 MULTIDEVICE_KERNELS = BAND_KERNELS + ("csr_spmv", "binned_spmv", "coo_spmv",
                                       "colsort2_spmv", "routed_spmv")
@@ -177,6 +202,9 @@ WRAPPER_KERNELS = {
     "take_probe": ("take_probe_kernel",),
     "dia_band_spmv": ("dia_band_spmv_kernel",),
     "dia_band_spmm": ("dia_band_spmm_kernel",),
+    "launch_floor": ("launch_floor_kernel",), "dia_probe": ("dia_probe_kernel",),
+    "dia_spmm_probe": ("dia_spmm_probe_kernel",),
+    "routed_probe": ("routed_probe_kernel",),
     # the hub pair of a colsort2 plan with hub rows, and routed's tail
     "colsort2_hub": ("colsort2_hub_kernel", "colsort2_hub_fold_kernel"),
     "colsort2_hub_spmm": ("colsort2_spmm_hub_kernel", "colsort2_spmm_hub_fold_kernel"),
@@ -194,6 +222,7 @@ JAX_AMG_150_ITERATIONS = 20          # the JAX package's AMG-CG count at 150x150
 MODEL_RATIO = 1.25                   # the model's pick against the walk leader
 MODEL_LINES = []                     # (matrix, pick, pick ms, leader, leader ms)
 EARLIER_VIA_DIA_MS = "0.36-0.70"     # PERF.md §5, H100 80GB HBM3, 700 W
+BENCH_BUDGET_S = 60.0                # the bench path's sweep
 
 
 def log(*args):
@@ -201,24 +230,10 @@ def log(*args):
 
 
 def median_ms(fn, samples=SAMPLES, per_sample=PER_SAMPLE):
-    """Median over `samples` of the per-launch CUDA-event time of
-    `per_sample` back-to-back launches, after a warm-up.  Events around a
-    single launch would also count the host's launch gap while the device
-    waits."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_sample):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / per_sample)
-    return statistics.median(times)
+    """Milliseconds a call of fn(): the harness's timer (the median over
+    `samples` of the CUDA-event time of `per_sample` back-to-back calls)."""
+    from cusp_autotuned_tpu_torch.benchmarks.harness import time_fn
+    return time_fn(fn, samples=samples, per_sample=per_sample) * 1e3
 
 
 def kernel_name(key):
@@ -309,23 +324,29 @@ def bound(nbytes, flops):
                                          else "operations")
 
 
+def check_mode(name, y, y_plain, rtol, atol, scale=None):
+    """|y - y_plain| <= atol + rtol * scale (|y_plain| unless given), y
+    finite and of y_plain's shape; returns the max abs error."""
+    torch.cuda.synchronize()
+    if y.shape != y_plain.shape or not torch.isfinite(y).all():
+        raise RuntimeError(f"{name}: kernel output {tuple(y.shape)} is not finite "
+                           f"or not of shape {tuple(y_plain.shape)}")
+    diff = (y - y_plain).abs()
+    bar = atol + rtol * (y_plain.abs() if scale is None else scale)
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool((diff <= bar).all()):
+        raise RuntimeError(f"{name}: kernel differs from plain version, max abs "
+                           f"err {err:.3e} (rtol {rtol}, atol {atol})")
+    return err
+
+
 def compare(name, kernel, plain, rtol, atol, useful_bytes, flops, triad_gbps,
             library=None, samples=SAMPLES, scale=None, per_sample=PER_SAMPLE):
     """Check kernel() against plain(), time both in turns (plain, kernel,
     kernel, plain), and library() beside them.  Returns the line's numbers.
     The check is |y - y_plain| <= atol + rtol * scale, where scale is
     |y_plain| unless given (the rails give each row's sum of |a_ij x_j|)."""
-    y, yp = kernel(), plain()
-    torch.cuda.synchronize()
-    if y.shape != yp.shape or not torch.isfinite(y).all():
-        raise RuntimeError(f"{name}: kernel output {tuple(y.shape)} is not "
-                           f"finite or not of shape {tuple(yp.shape)}")
-    diff = (y - yp).abs()
-    err = float(diff.max())
-    bar = atol + rtol * (yp.abs() if scale is None else scale)
-    if not bool((diff <= bar).all()):
-        raise RuntimeError(f"{name}: kernel differs from plain version, "
-                           f"max abs err {err:.3e} (rtol {rtol}, atol {atol})")
+    err = check_mode(name, kernel(), plain(), rtol, atol, scale)
     p1, k1, k2, p2 = (median_ms(f, samples, per_sample)
                       for f in (plain, kernel, kernel, plain))
     ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
@@ -820,6 +841,8 @@ def reset_counts():
 
 def counters():
     from cusp_autotuned_tpu_torch.autotune.calibrate import stream_triad, take_probe
+    from cusp_autotuned_tpu_torch.benchmarks import dia_probe, dia_spmm_probe, routed_probe
+    from cusp_autotuned_tpu_torch.benchmarks.harness import launch_floor
     from cusp_autotuned_tpu_torch.kernels import colsort2, routed
     from cusp_autotuned_tpu_torch.kernels.binned import binned_spmm, binned_spmv
     from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmm, coo_spmv
@@ -836,7 +859,10 @@ def counters():
             "colsort2_hub": colsort2.colsort2_hub,
             "colsort2_hub_spmm": colsort2.colsort2_hub_spmm,
             "routed_spmv": routed.routed_spmv, "routed_spmm": routed.routed_spmm,
-            "take_probe": take_probe}
+            "take_probe": take_probe, "launch_floor": launch_floor,
+            "dia_probe": dia_probe.dia_probe,
+            "dia_spmm_probe": dia_spmm_probe.dia_spmm_probe,
+            "routed_probe": routed_probe.routed_probe}
 
 
 def read_counts():
@@ -1799,6 +1825,168 @@ def multidevice_phase(device, A_csr, b, cgcu_its, cgcu_rel, M, b_amg, amg_its,
     return launches
 
 
+def check_equal(name, y, y_shipped):
+    """The probe's shipped mode against the shipped kernel: bit for bit."""
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_shipped):
+        raise RuntimeError(f"{name}: differs from the shipped kernel, max abs "
+                           f"diff {float((y - y_shipped).abs().max()):.3e}")
+
+
+def probes_phase(device, triad_gbps):
+    """The four probe kernels in every mode against their plain versions on
+    the card, and each probe's shipped mode against the shipped kernel bit
+    for bit; then the probes path: the three probes' main() and the launch
+    floor, with the counts set to 0 just before.  Returns (records of the
+    four kernels, the path's launch counts)."""
+    from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.benchmarks import (
+        dia_probe, dia_spmm_probe, harness, routed_probe,
+    )
+    from cusp_autotuned_tpu_torch.kernels.dia import build_dia, dia_spmv_plain
+    from cusp_autotuned_tpu_torch.kernels.routed import build_routed
+
+    records = {}
+    x = harness.floor_tile(device)
+    records["launch_floor"] = compare(
+        "launch_floor (8, 128) f32", lambda: harness.launch_floor(x),
+        lambda: harness.launch_floor_plain(x), 0.0, 0.0, 8 * x.numel(),
+        2 * x.numel(), triad_gbps)
+
+    A = gallery.poisson5pt(1000, 1000, format="dia", device=device)
+    x = seeded_x(A.num_cols, 0, device)
+    shipped = build_dia(A, {})(x)
+    log("probes: dia_probe on poisson5pt 1000x1000 f32 against its plain versions "
+        "(rtol 1e-5, atol 1e-4), full equal to dia_spmv bit for bit:")
+    for mode in dia_probe.MODES:
+        for block in dia_probe.BLOCKS:
+            fn = dia_probe.build_probe(A, block, mode)
+            xin = fn.prepare(x)
+            y = fn(xin)
+            err = check_mode(f"dia_probe {mode} block={block}", y, dia_probe.dia_probe_plain(
+                fn.planned_arrays["data"], A.offsets, xin, A.shape, mode,
+                -min(A.offsets)), DIA_RTOL, DIA_ATOL)
+            if mode in ("full", "nobounds"):
+                check_equal(f"dia_probe {mode} block={block}", y, shipped)
+            log(f"  {mode} block={block}: max abs err {err:.3e}")
+    full = dia_probe.build_probe(A, 256, "full")
+    records["dia_probe"] = compare(
+        "dia_probe full (poisson5pt 1000x1000 f32)", lambda: full(x),
+        lambda: dia_spmv_plain(A.data, A.offsets, x, A.shape), DIA_RTOL, DIA_ATOL,
+        dia_probe.useful_bytes(A, "full"), 2 * A.num_diagonals * A.num_rows,
+        triad_gbps, library_spmv(A, x))
+    del x, shipped, full
+
+    log("probes: dia_spmm_probe against its plain versions (rtol 1e-5, atol "
+        "1e-4), shipped, team=T and xtile equal to dia_spmm bit for bit:")
+    for grid, k in ((1000, 16), (1000, 3), (300, 128)):
+        D = gallery.poisson5pt(grid, grid, format="dia", device=device)
+        X = seeded_block(D.num_cols, k, 2, device)
+        shipped = build_dia(D, {})(X)
+        for mode in dia_spmm_probe.MODES:
+            for block in (256, 1024):
+                Y = dia_spmm_probe.build_probe(D, mode, block)(X)
+                err = check_mode(f"dia_spmm_probe {mode} {grid}^2 k={k} block={block}",
+                                 Y, dia_spmm_probe.dia_spmm_probe_plain(
+                                     D.data, D.offsets, X, D.shape, mode),
+                                 DIA_RTOL, DIA_ATOL)
+                if mode != "nodata":
+                    check_equal(f"dia_spmm_probe {mode} {grid}^2 k={k}", Y, shipped)
+                log(f"  {mode} poisson5pt {grid}x{grid} k={k} block={block}: max abs "
+                    f"err {err:.3e}")
+        del X, shipped
+    X = seeded_block(A.num_cols, 16, 2, device)
+    fn = dia_spmm_probe.build_probe(A, "shipped")
+    records["dia_spmm_probe"] = compare(
+        "dia_spmm_probe shipped (poisson5pt 1000x1000 f32, k=16)", lambda: fn(X),
+        lambda: dia_spmv_plain(A.data, A.offsets, X, A.shape), DIA_RTOL, DIA_ATOL,
+        dia_spmm_probe.useful_bytes(A, 16), 2 * A.num_diagonals * A.num_rows * 16,
+        triad_gbps, library_spmv(A, X), samples=SPMM_SAMPLES,
+        per_sample=SPMM_PER_SAMPLE)
+    del A, X, fn
+
+    log("probes: routed_probe against its plain versions (rtol 1e-4, atol 1e-4 "
+        "of each row's sum of |a x|), full and nostage equal to routed_spmv bit "
+        "for bit:")
+    for name in ("Economics", "LP"):
+        R = routed_probe.suite_matrix(name, device)
+        x = seeded_x(R.num_cols, 0, device)
+        for config in routed_probe.CONFIGS:
+            shipped = build_routed(R, config)(x)
+            for mode in routed_probe.MODES:
+                fn, info = routed_probe.build_probe(R, config, mode)
+                a = fn.planned_arrays
+                args = (R.shape, info["hub_cap"], info["window"], mode,
+                        config["block_size"])
+                plain = routed_probe.routed_probe_plain(a, x, *args)
+                scale = routed_probe.routed_probe_plain(
+                    {**a, "val": a["val"].abs()}, x.abs(), *args)
+                y = fn(x)
+                err = check_mode(f"routed_probe {mode} {name} {config}", y, plain,
+                                 RAIL_RTOL, RAIL_ATOL, scale)
+                if mode in ("full", "nostage"):
+                    check_equal(f"routed_probe {mode} {name} {config}", y, shipped)
+                log(f"  {mode} {name} {config}: max abs err {err:.3e}")
+        if name == "Economics":
+            fn, info = routed_probe.build_probe(R, routed_probe.CONFIGS[0], "full")
+            a = fn.planned_arrays
+            args = (R.shape, info["hub_cap"], info["window"], "full",
+                    routed_probe.CONFIGS[0]["block_size"])
+            records["routed_probe"] = compare(
+                "routed_probe full (Economics, the default plan)", lambda: fn(x),
+                lambda: routed_probe.routed_probe_plain(a, x, *args), RAIL_RTOL,
+                RAIL_ATOL, routed_probe.useful_bytes(R), 2 * R.nnz, triad_gbps,
+                library_spmv(R, x), samples=RAIL_SAMPLES,
+                scale=routed_probe.routed_probe_plain(
+                    {**a, "val": a["val"].abs()}, x.abs(), *args))
+        del R, x, shipped
+
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+    dia_probe.main(stream_gbps=triad_gbps)
+    dia_spmm_probe.main(stream_gbps=triad_gbps)
+    for name in ("Economics", "LP"):
+        routed_probe.main(["routed_probe", name], stream_gbps=triad_gbps)
+    floor = harness.launch_floor_s(device)
+    log(f"probes: launch floor (8, 128) f32: {floor['per_call_s'] * 1e6:.3f} us a "
+        f"launch back to back, {floor['graph_s'] * 1e6:.3f} us a launch in a CUDA "
+        f"graph's replay, host cost {floor['host_s'] * 1e6:.3f} us a launch")
+    launches = read_counts()
+    log(f"probes: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return records, launches
+
+
+def bench_path(device, budget_s):
+    """The bench path: cusp_autotuned_tpu_torch.bench.main in this process,
+    with the counts set to 0 just before; checks that the headline was
+    measured and that the launch floor and the triad ran on it."""
+    from cusp_autotuned_tpu_torch import bench
+
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+    line = bench.main(budget_s=budget_s)
+    launches = read_counts()
+    log(f"bench: path in {time.perf_counter() - t_path:.1f} s (budget {budget_s} s "
+        f"for the sweep); launches {launches}")
+    value, sweep = line["value"], line["sweep"]
+    if not (np.isfinite(value) and value > 0 and np.isfinite(line["vs_baseline"])):
+        raise RuntimeError(f"bench: the headline was not measured: {line}")
+    if "SpMV DIA poisson5pt(1000x1000)" not in line["metric"] \
+            or "launch_host_us" not in sweep or "cgcu_1m_iters" not in sweep:
+        raise RuntimeError(f"bench: the line lacks the headline or its first rows: "
+                           f"{line}")
+    unknown = set(sweep) - set(bench.SWEEP_KEYS) - {"truncated"}
+    if unknown:
+        raise RuntimeError(f"bench: sweep keys {sorted(unknown)} are not "
+                           f"bench.SWEEP_KEYS")
+    if launches["launch_floor"] < 1 or launches["stream_triad"] < 1:
+        raise RuntimeError(f"bench: the launch floor or the triad did not launch "
+                           f"on the bench path: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch sees no CUDA device; the port's "
@@ -1839,6 +2027,8 @@ def main():
                               matrices["poisson5pt 1000x1000 f32"],
                               matrices["random 1M rows, skewed"]))
     del matrices["uniform random 1M x 1M"]
+    probe_records, probe_launches = probes_phase(device, triad_gbps)
+    records.update(probe_records)
 
     cg_launches, b, viadia_its, viadia_rel = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
@@ -1851,15 +2041,19 @@ def main():
     spmm_launches = spmm_phase(device, matrices)
     del matrices
     suite_launches = suite_phase(device)
+    bench_launches = bench_path(device, BENCH_BUDGET_S)
     log(f"launches: cg.cu path {cg_launches}; amg path {amg_launches}; "
         f"multidevice path {mesh_launches}; autotune path {tuned_launches}; spmm "
-        f"path {spmm_launches}; suite path {suite_launches}")
+        f"path {spmm_launches}; suite path {suite_launches}; probes path "
+        f"{probe_launches}; bench path {bench_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
         [k for k in SUITE_KERNELS if suite_launches[k] < 1] + \
-        [k for k in MULTIDEVICE_KERNELS if mesh_launches[k] < 1]
+        [k for k in MULTIDEVICE_KERNELS if mesh_launches[k] < 1] + \
+        [k for k in PROBE_KERNELS if probe_launches[k] < 1] + \
+        [k for k in ("launch_floor", "stream_triad") if bench_launches[k] < 1]
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
     within = [line for line in MODEL_LINES if line[2] <= MODEL_RATIO * line[4]]
@@ -1877,7 +2071,8 @@ def main():
                         "cusp_autotuned_tpu/kernels/pallas_binned.py:193"),
         "coo_spmv": ("coo_spmv.cu", "cusp_autotuned_tpu/kernels/pallas_colsort.py:162"),
         "stream_triad": ("stream_triad.cu",
-                         "cusp_autotuned_tpu/autotune/calibrate.py:322"),
+                         "cusp_autotuned_tpu/autotune/calibrate.py:322; "
+                         "benchmarks/harness.py:224"),
         "dia_spmm": ("dia_spmm.cu", "cusp_autotuned_tpu/kernels/pallas_dia.py:381"),
         "binned_spmm": ("binned_spmm.cu",
                         "cusp_autotuned_tpu/kernels/pallas_binned.py:229"),
@@ -1897,6 +2092,10 @@ def main():
                           "cusp_autotuned_tpu/parallel/sharded_plans.py:154"),
         "dia_band_spmm": ("dia_spmm.cu",
                           "cusp_autotuned_tpu/parallel/sharded_plans.py:154"),
+        "launch_floor": ("launch_floor.cu", "benchmarks/harness.py:279"),
+        "dia_probe": ("dia_probe.cu", "benchmarks/dia_probe.py:27"),
+        "dia_spmm_probe": ("dia_spmm_probe.cu", "benchmarks/dia_spmm_probe.py:29"),
+        "routed_probe": ("routed_probe.cu", "benchmarks/routed_probe.py:44"),
     }
     kernels = []
     for name in KERNELS:
@@ -1906,9 +2105,9 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": (cg_launches[name] + amg_launches[name]
-                         + mesh_launches[name] + tuned_launches[name]
-                         + spmm_launches[name] + suite_launches[name]),
+            "launches": sum(path[name] for path in (
+                cg_launches, amg_launches, mesh_launches, tuned_launches,
+                spmm_launches, suite_launches, probe_launches, bench_launches)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

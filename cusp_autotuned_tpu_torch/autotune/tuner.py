@@ -268,29 +268,11 @@ class Tuner:
 
     def _time_graph(self, fn, x) -> float:
         """Device milliseconds per call: `repeats` calls captured into one
-        CUDA graph (after `warmup` calls on the capture's side stream, as
-        capture asks), its replay timed by CUDA events, best of three."""
-        side = torch.cuda.Stream(x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
-            for _ in range(self.warmup):
-                fn(x)
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(self.repeats):
-                fn(x)
-        graph.replay()                  # the first replay uploads the graph
-        best = float("inf")
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            stop.record()
-            stop.synchronize()
-            best = min(best, start.elapsed_time(stop) / self.repeats)
-        return best
+        CUDA graph (after `warmup` calls), its replay timed by CUDA events,
+        best of three (benchmarks/harness.py:graph_time_s)."""
+        from cusp_autotuned_tpu_torch.benchmarks.harness import graph_time_s
+        return graph_time_s(fn, x, warmup=self.warmup,
+                            repeats=self.repeats) * 1e3
 
     def _execute(self, A, x, config, *, validate=None) -> TuningResult:
         """Build and run one configuration (parity: KTT ResultStatus, and

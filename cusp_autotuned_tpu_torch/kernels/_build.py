@@ -84,6 +84,17 @@ _SIGNATURES = {
     "cusp_stream_triad": ((_vp, _vp, _i64, _i32, _vp), ("f32",)),
     # x, idx, out, rows, passes, from_shared, stream
     "cusp_take_probe": ((_vp, _vp, _vp, _i64, _i32, _i32, _vp), ("f32",)),
+    # x, y, n, stream
+    "cusp_launch_floor": ((_vp, _vp, _i32, _vp), ("f32",)),
+    # data, offsets, k, pitch, x, y, m, n, left, mode, block, stream
+    "cusp_dia_probe": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i64, _i32,
+                        _i32, _vp), ("f32",)),
+    # data, offsets, ndiag, pitch, X, Y, m, n, k, mode, team, block, stream
+    "cusp_dia_spmm_probe": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32,
+                             _i32, _i32, _i32, _vp), ("f32",)),
+    # indptr, col, val, x, y, m, n, thr, win_ptr, win_ids, W, mode, block, stream
+    "cusp_routed_probe": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp,
+                           _i32, _i32, _i32, _vp), ("f32",)),
 }
 
 

@@ -734,3 +734,90 @@ def test_kernels_refuse_complex_at_build_time_on_card(cuda_device, fmt):
     assert default_config(A)["impl"] != "cuda"
     y = planned_operator(A)(torch.ones(40, dtype=torch.complex64, device=cuda_device))
     np.testing.assert_allclose(y.cpu().numpy(), S @ np.ones(40), rtol=1e-5)
+
+
+# -- the measurement path: the launch floor and the three probes ---------------
+
+def test_launch_floor_matches_plain_bit_for_bit_on_card(cuda_device):
+    from cusp_autotuned_tpu_torch.benchmarks import harness
+    x = harness.floor_tile(cuda_device)
+    before = harness.launch_floor.launches
+    y = harness.launch_floor(x)
+    assert harness.launch_floor.launches == before + 1
+    assert torch.equal(y, harness.launch_floor_plain(x))
+    floor = harness.launch_floor_s(cuda_device, samples=3, per_sample=10)
+    assert 0 < floor["graph_s"] <= floor["per_call_s"]
+    with pytest.raises(InvalidInputException):
+        harness.launch_floor(torch.zeros(2048, device=cuda_device))
+
+
+@pytest.mark.parametrize("block", [128, 1024])
+@pytest.mark.parametrize("mode", ["full", "noshift", "nodata", "nobounds"])
+def test_dia_probe_matches_plain_on_card(cuda_device, mode, block):
+    from cusp_autotuned_tpu_torch.benchmarks import dia_probe
+    A = gallery.poisson5pt(150, 170, format="dia", device=cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    fn = dia_probe.build_probe(A, block, mode)
+    xin = fn.prepare(x)
+    before = dia_probe.dia_probe.launches
+    y = fn(xin)
+    assert dia_probe.dia_probe.launches == before + 1
+    plain = dia_probe.dia_probe_plain(A.data, A.offsets, xin, A.shape, mode,
+                                      -min(A.offsets))
+    np.testing.assert_allclose(y.cpu().numpy(), plain.cpu().numpy(), **TOL["dia"])
+    if mode in ("full", "nobounds"):
+        assert torch.equal(y, build_dia(A, {})(x))
+
+
+@pytest.mark.parametrize("k", [3, 16, 128])
+@pytest.mark.parametrize("mode", ["shipped", "team=32", "team=64", "team=128",
+                                  "xtile", "nodata"])
+def test_dia_spmm_probe_matches_plain_on_card(cuda_device, mode, k):
+    from cusp_autotuned_tpu_torch.benchmarks import dia_spmm_probe
+    A = gallery.poisson5pt(60, 70, format="dia", device=cuda_device)
+    X = torch.from_numpy(np.random.RandomState(2).randn(A.num_cols, k)
+                         .astype(np.float32)).to(cuda_device)
+    for block in (256, 1024):
+        Y = dia_spmm_probe.build_probe(A, mode, block)(X)
+        plain = dia_spmm_probe.dia_spmm_probe_plain(A.data, A.offsets, X, A.shape,
+                                                    mode)
+        np.testing.assert_allclose(Y.cpu().numpy(), plain.cpu().numpy(),
+                                   **TOL["dia"])
+        if mode != "nodata":
+            assert torch.equal(Y, build_dia(A, {})(X))
+
+
+def _routed_probe_matrix(device):
+    """Rows of four entries near column 4 r (staged in 4096-column windows),
+    two anywhere, and one hub row of 300 entries."""
+    rng = np.random.RandomState(5)
+    m, n = 8192, 40000
+    rows = np.repeat(np.arange(m), 6)
+    local = (4 * rows + np.tile([0, 1, 2, 3, 0, 0], m)) % n
+    cols = np.where(np.tile([1, 1, 1, 1, 0, 0], m).astype(bool), local,
+                    rng.randint(0, n, rows.size))
+    rows = np.r_[rows, np.full(300, 11)]
+    cols = np.r_[cols, rng.choice(n, 300, replace=False)]
+    S = sp.coo_matrix((rng.uniform(-1, 1, rows.size), (rows, cols)), shape=(m, n))
+    return from_scipy(S.tocsr(), "csr", dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("mode", ["full", "nostage", "stageonly", "nohub", "loads"])
+def test_routed_probe_matches_plain_on_card(cuda_device, mode):
+    from cusp_autotuned_tpu_torch.benchmarks import routed_probe
+    A = _routed_probe_matrix(cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    config = {"hub_cap": 32, "window": 4096, "block_size": 256}
+    fn, info = routed_probe.build_probe(A, config, mode)
+    assert info["staged_windows"] > 0 and info["tail_share"] > 0
+    before = routed_probe.routed_probe.launches
+    y = fn(x)
+    assert routed_probe.routed_probe.launches == before + 1
+    args = (A.shape, info["hub_cap"], info["window"], mode, 256)
+    a = fn.planned_arrays
+    plain = routed_probe.routed_probe_plain(a, x, *args)
+    scale = routed_probe.routed_probe_plain({**a, "val": a["val"].abs()}, x.abs(),
+                                            *args)
+    assert bool(((y - plain).abs() <= 1e-4 + 1e-4 * scale).all())
+    if mode in ("full", "nostage"):
+        assert torch.equal(y, build_routed(A, config)(x))

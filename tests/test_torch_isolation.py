@@ -33,7 +33,13 @@ SLICE_MODULES = (
     "precond.aggregation.structured_rap", "native",
     "kernels.streaming", "parallel", "parallel.sharded",
     "parallel.shard_map_spmv", "parallel.sharded_plans",
+    "benchmarks", "benchmarks.harness", "benchmarks.bytes_per_spmv",
+    "benchmarks.dia_probe", "benchmarks.dia_spmm_probe", "benchmarks.routed_probe",
+    "utils.profiling", "bench",
 )
+# the JAX side: JAX itself, the JAX package, and the JAX repository's
+# bench.py and benchmarks/ folder
+JAX_SIDE = ("jax", "jaxlib", "cusp_autotuned_tpu", "bench", "benchmarks")
 
 
 def test_port_imports_no_jax():
@@ -44,7 +50,7 @@ def test_port_imports_no_jax():
             "           if 'cusp_autotuned_tpu_torch.' + m not in sys.modules]\n"
             "assert not missing, missing\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-            "('jax', 'jaxlib', 'cusp_autotuned_tpu', 'triton'))\n"
+            f"{JAX_SIDE + ('triton',)!r})\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     proc = _run(["-c", code], REPO)
@@ -53,7 +59,7 @@ def test_port_imports_no_jax():
 
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py's imports, top level and inside its functions, name
-    neither JAX nor the JAX package."""
+    neither JAX nor the JAX package, bench.py or benchmarks/."""
     import ast
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -63,8 +69,7 @@ def test_chip_smoke_imports_no_jax():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
-    bad = sorted(n for n in names if n.split(".")[0] in
-                 ("jax", "jaxlib", "cusp_autotuned_tpu"))
+    bad = sorted(n for n in names if n.split(".")[0] in JAX_SIDE)
     assert not bad, bad
     assert "cusp_autotuned_tpu_torch.autotune" in names
 
