@@ -116,8 +116,10 @@ Phases:
                row's sum of |a x|), and each probe's shipped mode against
                the shipped kernel bit for bit (dia_probe full and nobounds
                against dia_spmv at four block sizes; dia_spmm_probe
-               shipped, team=T and xtile against dia_spmm at k = 16, 3 and
-               128; routed_probe full and nostage against routed_spmv on
+               shipped, team=T and xtile against dia_spmm on every shape
+               its main() times, poisson5pt 1000x1000 at k = 16 and 128
+               and 300x300 at k = 128, and on 1000x1000 at k = 3;
+               routed_probe full and nostage against routed_spmv on
                Economics and LP, two plans each), then the probes path
   take_probe   the take probe (both instantiations: x staged in shared
                memory, x read through L1/L2) against its plain version at
@@ -1879,22 +1881,25 @@ def probes_phase(device, triad_gbps):
 
     log("probes: dia_spmm_probe against its plain versions (rtol 1e-5, atol "
         "1e-4), shipped, team=T and xtile equal to dia_spmm bit for bit:")
-    for grid, k in ((1000, 16), (1000, 3), (300, 128)):
+    # the shapes main() times, and k = 3 for the narrow team
+    for grid, k in dia_spmm_probe.SHAPES + ((1000, 3),):
         D = gallery.poisson5pt(grid, grid, format="dia", device=device)
         X = seeded_block(D.num_cols, k, 2, device)
         shipped = build_dia(D, {})(X)
+        plain = {mode: dia_spmm_probe.dia_spmm_probe_plain(
+            D.data, D.offsets, X, D.shape, mode) for mode in ("shipped", "nodata")}
         for mode in dia_spmm_probe.MODES:
             for block in (256, 1024):
                 Y = dia_spmm_probe.build_probe(D, mode, block)(X)
                 err = check_mode(f"dia_spmm_probe {mode} {grid}^2 k={k} block={block}",
-                                 Y, dia_spmm_probe.dia_spmm_probe_plain(
-                                     D.data, D.offsets, X, D.shape, mode),
+                                 Y, plain["nodata" if mode == "nodata" else "shipped"],
                                  DIA_RTOL, DIA_ATOL)
                 if mode != "nodata":
                     check_equal(f"dia_spmm_probe {mode} {grid}^2 k={k}", Y, shipped)
                 log(f"  {mode} poisson5pt {grid}x{grid} k={k} block={block}: max abs "
                     f"err {err:.3e}")
-        del X, shipped
+                del Y
+        del X, shipped, plain
     X = seeded_block(A.num_cols, 16, 2, device)
     fn = dia_spmm_probe.build_probe(A, "shipped")
     records["dia_spmm_probe"] = compare(

@@ -33,8 +33,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from cusp_autotuned_tpu_torch.benchmarks import harness
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.utils.config import resolve_device
 from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 
 TRIAD_BYTES = 1 << 30              # x and y together
@@ -135,54 +135,36 @@ def take_probe(x, idx, passes, from_shared=True):
 take_probe.launches = 0
 
 
-def _card(device) -> torch.device:
-    device = resolve_device(device)
-    if device.type != "cuda":
-        raise InvalidInputException(
-            f"calibration measures a card; got {device}, and a CPU number "
-            f"does not stand in for it")
-    return device
-
-
-def _ms_per_call(fn, reps, warmup=2) -> float:
-    """CUDA-event milliseconds per call over `reps` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
+def _ms(fn, device, reps) -> float:
+    """CUDA-event milliseconds a call of fn(), `reps` calls back to back
+    (benchmarks/harness.py:time_fn, the median of three such runs)."""
+    return harness.time_fn(fn, samples=3, per_sample=reps, device=device) * 1e3
 
 
 def stream_gbps(device=None, nbytes: int = TRIAD_BYTES, reps: int = 20) -> float:
     """GB/s of the triad kernel over x and y of nbytes together: 12 bytes
     moved per element (x read, y read and written)."""
-    device = _card(device)
+    device = harness.card((), device)
     n = nbytes // 8
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(n, device=device, generator=gen)
     y = torch.rand(n, device=device, generator=gen)
-    ms = _ms_per_call(lambda: stream_triad(x, y), reps)
+    ms = _ms(lambda: stream_triad(x, y), device, reps)
     return 12 * n / (ms * 1e-3) / 1e9
 
 
 def torch_op_ns(device=None) -> Dict[str, float]:
     """Nanoseconds per element of a random gather (index_select) and of a
     sorted segment sum (index_add_) over PROBE_ELEMENTS elements."""
-    device = _card(device)
+    device = harness.card((), device)
     n = PROBE_ELEMENTS
     gen = torch.Generator(device=device).manual_seed(1)
     x = torch.rand(n, device=device, generator=gen)
     gidx = torch.randint(0, n, (n,), device=device, generator=gen)
     seg = torch.sort(torch.randint(0, n, (n,), device=device, generator=gen)).values
     out = torch.zeros(n, device=device)
-    gather = _ms_per_call(lambda: torch.index_select(x, 0, gidx), 20)
-    segsum = _ms_per_call(lambda: out.zero_().index_add_(0, seg, x), 20)
+    gather = _ms(lambda: torch.index_select(x, 0, gidx), device, 20)
+    segsum = _ms(lambda: out.zero_().index_add_(0, seg, x), device, 20)
     return {"gather_ns": gather * 1e6 / n, "segsum_ns": segsum * 1e6 / n}
 
 
@@ -191,11 +173,11 @@ def tile_take_ns(device=None, tiles: int = TAKE_TILES, reps: int = 10,
     """Nanoseconds of one take pass over one (128, 128) tile: the take
     probe timed at 2 and 18 passes over `tiles` tiles, the difference over
     16 passes and the tiles, so the streamed x, planes and output drop out."""
-    device = _card(device)
+    device = harness.card((), device)
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(tiles * LANE, LANE, device=device, generator=gen)
     idx = take_probe_planes().to(device)
-    lo, hi = (_ms_per_call(lambda p=p: take_probe(x, idx, p, from_shared), reps)
+    lo, hi = (_ms(lambda p=p: take_probe(x, idx, p, from_shared), device, reps)
               for p in TAKE_PASSES)
     return max(hi - lo, 1e-9) * 1e6 / (tiles * (TAKE_PASSES[1] - TAKE_PASSES[0]))
 
@@ -242,7 +224,7 @@ def calibrate(device=None, path: Optional[str] = None) -> Dict[str, float]:
     `path`, else default_path) and apply those the cost model prices with
     to it (the global-x reading is reported beside the shared one)."""
     from cusp_autotuned_tpu_torch.autotune import cost_model
-    device = _card(device)
+    device = harness.card((), device)
     consts = {"stream_gbps": stream_gbps(device), **torch_op_ns(device),
               "tile_take_ns": tile_take_ns(device),
               "tile_take_global_ns": tile_take_ns(device, from_shared=False)}

@@ -402,28 +402,38 @@ def recommend_config(A, x=None, device: Optional[Dict[str, float]] = None,
     return dict(feasible[label]["config"]), float(feasible[label]["us"])
 
 
+DEFAULT_CLASS = ("segsum", "gather", "rowlen", "slices", "default")
+
+
+def label_of(A, config: Dict[str, Any]) -> str:
+    """The label under which predict prices config's impl class on A: the
+    format's default kernels are "default", the cuda impl on a DIA matrix
+    is "via_dia", and via_dia (or cuda on DIA) with bf16 values is
+    "via_dia_bf16"."""
+    impl = config.get("impl", "default")
+    if impl in DEFAULT_CLASS:
+        return "default"
+    if impl == "cuda" and A.format == "dia":
+        impl = "via_dia"
+    if impl == "via_dia" and config.get("value_dtype") == "bfloat16":
+        return "via_dia_bf16"
+    return impl
+
+
 def model_order_key(A, device: Optional[Dict[str, float]] = None):
     """A sort key over configurations: the predicted µs of the
-    configuration's impl class (an impl the model does not price sorts
-    last, keeping its relative order in a stable sort)."""
+    configuration's impl class (label_of; an impl the model does not price
+    sorts last, keeping its relative order in a stable sort).  A bf16 DIA
+    plan takes the lesser of its own price and the f32 one."""
     pred = predict(A, device=device, allow_low_precision=True)
 
     def us_of(label: str) -> float:
         return float(pred.get(label, {}).get("us", float("inf")))
 
-    class_us = {impl: us_of("default")
-                for impl in ("segsum", "gather", "rowlen", "slices", "default")}
-    class_us.update(via_dense=us_of("via_dense"), via_dia=us_of("via_dia"))
-    class_us.update({impl: us_of(impl) for impl in RAILS})
-    if A.format == "dia":
-        class_us["cuda"] = us_of("via_dia")
-
     def key(config: Dict[str, Any]) -> float:
-        impl = config.get("impl", "default")
-        us = class_us.get(impl, float("inf"))
-        if config.get("value_dtype") == "bfloat16" and (
-                impl == "via_dia" or (A.format == "dia" and impl == "cuda")):
-            us = min(us, us_of("via_dia_bf16"))
-        return us
+        label = label_of(A, config)
+        if label == "via_dia_bf16":
+            return min(us_of(label), us_of("via_dia"))
+        return us_of(label)
 
     return key

@@ -20,6 +20,12 @@ each swept over block = 128, 256, 512 and 1024 threads, on poisson5pt
 a ~3070 GB/s triad.  `shipped` times build_dia itself in f32 and in bf16
 storage (:109-116).  The JAX modes noroll and oneroll priced the TPU's lane
 rolls, which the card does not have.
+
+Every row is timed with its working set out of L2 (harness.time_cold:
+the 28 MB fit in the 50 MB L2, and a call timed again and again on the
+same arrays reads them from there, not from HBM).  One more row times the
+shipped f32 kernel on one copy, L2-warm, to show what L2 residency is
+worth.
 """
 
 from __future__ import annotations
@@ -152,21 +158,45 @@ def main(stream_gbps=None):
           f"ms at the triad's {stream_gbps:.1f} GB/s", flush=True)
     out = {}
 
-    def row(label, fn, xin, nbytes):
-        marg, call = harness.time_fn_marginal(fn, xin, samples=5)
+    def row(label, build, nbytes, working=None, cold=True):
+        """Time build's call (nbytes: the rate's numerator; working: the
+        bytes the call moves, nbytes by default)."""
+        if cold:
+            marg, call = harness.time_cold(build, working or nbytes, device,
+                                           samples=5)
+        else:
+            fn, args = build(0)
+            marg, call = harness.time_fn_marginal(fn, *args, samples=5)
         out[label] = (marg, call)
-        print(f"  {label:26s} {marg * 1e3:.4f} ms device {call * 1e3:.4f} ms/call "
+        print(f"  {label:34s} {marg * 1e3:.4f} ms device {call * 1e3:.4f} ms/call "
               f"{nbytes / marg / 1e9:8.1f} GB/s useful "
               f"({100 * nbytes / marg / 1e9 / stream_gbps:5.1f} % of the triad)",
               flush=True)
 
+    def copies(make):
+        """build(i) for harness.time_cold: make(A_i, x_i) on copy i."""
+        def build(i):
+            return make(*((A, x) if i == 0 else (harness.fresh(A), x.clone())))
+        return build
+
+    def probe(mode, block):
+        def make(Ai, xi):
+            fn = build_probe(Ai, block, mode)
+            return fn, (fn.prepare(xi),)
+        return make
+
+    def shipped(cfg):
+        return lambda Ai, xi: (build_dia(Ai, cfg), (xi,))
+
     for mode in MODES:
         for block in BLOCKS:
-            fn = build_probe(A, block, mode)
-            row(f"{mode} block={block}", fn, fn.prepare(x), useful_bytes(A, mode))
-    for cfg in ({}, {"value_dtype": "bfloat16"}):
-        fn = build_dia(A, cfg)
-        row(f"shipped {cfg.get('value_dtype', 'f32')} (f32-equiv bytes)", fn, x, full)
+            row(f"{mode} block={block}", copies(probe(mode, block)),
+                useful_bytes(A, mode))
+    for cfg, size in (({}, 4), ({"value_dtype": "bfloat16"}, 2)):
+        row(f"shipped {cfg.get('value_dtype', 'f32')} (f32-equiv bytes)",
+            copies(shipped(cfg)), full,
+            working=A.data.numel() * size + (A.num_rows + A.num_cols) * 4)
+    row("shipped f32 L2-warm (one copy)", copies(shipped({})), full, cold=False)
     return out
 
 

@@ -23,7 +23,9 @@ span X's columns and whether X's shifted rows come again from L1/L2.  The
 plain version and cuSPARSE (torch.sparse_csr_tensor @ X) are timed beside
 them as yardsticks, where :113 timed the XLA path.  Shapes: poisson5pt
 1000x1000 at k = 16 and 128 (useful ~148 and ~1044 MB), and the JAX
-probe's own 300x300 at k = 128 (:96-97).
+probe's own 300x300 at k = 128 (:96-97).  Every row is timed with its
+working set out of L2 (harness.time_cold; only the 1000x1000 k = 128
+shape is past four L2s on its own).
 """
 
 from __future__ import annotations
@@ -137,8 +139,15 @@ def main(stream_gbps=None):
               f"MF, useful {full / 1e6:.1f} MB, bound {full / stream_gbps / 1e6:.4f} "
               f"ms at the triad's {stream_gbps:.1f} GB/s", flush=True)
 
-        def row(label, fn, nbytes, err=None):
-            marg, call = harness.time_fn_marginal(fn, X, samples=5, per_sample=10)
+        def copies(make):
+            """build(i) for harness.cold_call: make(A_i, X_i) on copy i."""
+            def build(i):
+                return make(*((A, X) if i == 0 else (harness.fresh(A), X.clone())))
+            return build
+
+        def row(label, make, nbytes, err=None):
+            marg, call = harness.time_cold(copies(make), full, device,
+                                           samples=5, per_sample=10)
             out[(grid, k, label)] = (marg, call)
             print(f"  {label:22s} {marg * 1e3:.4f} ms device {call * 1e3:.4f} "
                   f"ms/call {flops / marg / 1e9:8.1f} GF/s {nbytes / marg / 1e9:7.1f} "
@@ -146,24 +155,30 @@ def main(stream_gbps=None):
                   f"of the triad)" + ("" if err is None else f" err {err:.1e}"),
                   flush=True)
 
-        def yardstick(label, fn):
+        def yardstick(label, make):
             # a call back to back only: cuSPARSE's workspace calls are not
             # known to be safe inside a graph capture
-            call = harness.time_fn(fn, X, samples=3, per_sample=3)
+            call = harness.time_fn(harness.cold_call(copies(make), full,
+                                                     device)[0],
+                                   samples=3, per_sample=3, device=device)
             out[(grid, k, label)] = (None, call)
             print(f"  {label:22s} {call * 1e3:.4f} ms/call {flops / call / 1e9:8.1f} "
                   f"GF/s {full / call / 1e9:7.1f} GB/s useful", flush=True)
 
+        def csr_of(Ai):
+            C = convert(Ai, "csr")
+            return torch.sparse_csr_tensor(C.indptr, C.col[:C.nnz], C.val[:C.nnz],
+                                           size=C.shape)
+
         for mode in MODES:
             fn = build_probe(A, mode)
             err = (harness.l2_error(fn(X), ref) if mode != "nodata" else None)
-            row(mode, fn, useful_bytes(A, k, mode), err)
-        yardstick("plain", lambda X_: dia_spmv_plain(A.data, A.offsets, X_, A.shape))
-        C = convert(A, "csr")
-        S = torch.sparse_csr_tensor(C.indptr, C.col[:C.nnz], C.val[:C.nnz],
-                                    size=C.shape)
-        yardstick("cuSPARSE", lambda X_: S @ X_)
-        del A, X, ref, S, C
+            row(mode, lambda Ai, Xi, mode=mode: (build_probe(Ai, mode), (Xi,)),
+                useful_bytes(A, k, mode), err)
+        yardstick("plain", lambda Ai, Xi: (
+            lambda X_: dia_spmv_plain(Ai.data, Ai.offsets, X_, Ai.shape), (Xi,)))
+        yardstick("cuSPARSE", lambda Ai, Xi: (csr_of(Ai).__matmul__, (Xi,)))
+        del A, X, ref
     return out
 
 

@@ -9,7 +9,14 @@ Two clocks, both CUDA events on the card:
   time_fn_marginal
                   (marginal, per call): the marginal is the device time a
                   call, N calls captured into one CUDA graph and the
-                  replay timed (graph_time_s, which the tuner ranks on).
+                  replay timed (graph_time_s, which the tuner ranks on);
+  time_cold       the same pair with the call's working set kept out of
+                  L2: the call's arrays come in copies, and the timing
+                  rotates through enough of them that no call finds its
+                  own in the 50 MB L2.  A call whose arrays fit in L2 and
+                  is timed again and again reads them from L2, not from
+                  HBM: its rate is not one to set against the triad's,
+                  which streams 1 GiB.
 
 On the TPU "marginal" meant the per-call time with each dispatch's fixed
 relay cost cancelled by two chained timings; on the card the fixed cost of
@@ -30,6 +37,8 @@ the same function as the calibration's triad (`csrc/stream_triad.cu`), so
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import statistics
 
 import numpy as np
@@ -42,6 +51,7 @@ from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 SAMPLES, PER_SAMPLE = 25, 20       # timed samples, back-to-back calls a sample
 WARMUP, REPEATS = 2, 10            # graph timing: calls before the capture, calls in it
 FLOOR_SHAPE = (8, 128)             # the launch floor's tile, harness.py:283
+COLD_L2S = 4                       # L2s of other copies between two calls of one copy
 
 
 def card(args=(), device=None) -> torch.device:
@@ -83,12 +93,13 @@ def time_fn(f, *args, samples: int = SAMPLES, per_sample: int = PER_SAMPLE,
     return statistics.median(times) * 1e-3
 
 
-def graph_time_s(f, *args, warmup: int = WARMUP, repeats: int = REPEATS) -> float:
+def graph_time_s(f, *args, warmup: int = WARMUP, repeats: int = REPEATS,
+                 device=None) -> float:
     """Device seconds a call of f(*args): `repeats` calls captured into one
     CUDA graph (after `warmup` calls on the capture's side stream, as
     capture asks), its replay timed by CUDA events, the best of three.
     f must be capture-safe: no host sync (.item(), .cpu()) inside it."""
-    device = card(args)
+    device = card(args, device)
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
@@ -121,6 +132,69 @@ def time_fn_marginal(f, *args, samples: int = SAMPLES,
     (time_fn), host gaps included."""
     return (graph_time_s(f, *args),
             time_fn(f, *args, samples=samples, per_sample=per_sample))
+
+
+def cold_copies(nbytes: int, device) -> int:
+    """Copies of a call's working set of `nbytes` that time_cold rotates
+    through: enough that the other copies, touched between two calls of
+    one copy, hold COLD_L2S times the card's L2 (1 where the set alone
+    does).  With four L2s between, a line survives in L2 only if the
+    replacement spares it four times over its size."""
+    evict = COLD_L2S * torch.cuda.get_device_properties(device).L2_cache_size
+    return 1 if nbytes >= evict else 1 + -(-evict // max(nbytes, 1))
+
+
+def fresh(obj):
+    """obj with every tensor in it cloned: a tensor, a container (a
+    dataclass of tensors), or a dict, tuple or list of them; anything else
+    as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: fresh(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if f.init})
+    if isinstance(obj, dict):
+        return {k: fresh(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(fresh(v) for v in obj)
+    return obj
+
+
+def cold_call(build, nbytes: int, device=None):
+    """(call, copies): call() runs fn(*args) of build(i) -> (fn, args) for
+    i = 0, 1, ..., copies - 1 in turn, each copy with arrays of its own
+    (build(0) may hand back the originals), copies = cold_copies(nbytes).
+    Each copy's last output is held until its next call, so that the
+    outputs, too, rotate through buffers of their own."""
+    device = card((), device)
+    copies = cold_copies(nbytes, device)
+    calls = [build(i) for i in range(copies)]
+    held = [None] * copies
+    turn = itertools.cycle(range(copies))
+
+    def call():
+        i = next(turn)
+        fn, args = calls[i]
+        held[i] = fn(*args)
+        return held[i]
+
+    return call, copies
+
+
+def time_cold(build, nbytes: int, device=None, samples: int = SAMPLES,
+              per_sample: int = PER_SAMPLE):
+    """(marginal_s, per_call_s) of the call build(i) -> (fn, args) makes,
+    as time_fn_marginal gives them, with the call's working set of `nbytes`
+    (the bytes it reads and writes) out of L2, as it is where the data
+    streams from HBM: the timings rotate through cold_call's copies, and
+    the graph holds a whole number of rotations, so that no copy comes
+    round sooner across two replays."""
+    device = card((), device)
+    call, copies = cold_call(build, nbytes, device)
+    repeats = copies * -(-REPEATS // copies)
+    return (graph_time_s(call, repeats=repeats, device=device),
+            time_fn(call, samples=samples, per_sample=per_sample, device=device))
 
 
 def stream_bandwidth_gbps(device=None) -> float:

@@ -65,19 +65,6 @@ def profile_spmv(A, x, config=None, stream_gbps=None) -> RooflineReport:
     return roofline_report(A, t, stream_gbps)
 
 
-def _label(A, config) -> str:
-    """The cost model's label (autotune/cost_model.py:predict) of config's
-    impl class."""
-    impl = config.get("impl", "default")
-    if impl in ("segsum", "gather", "rowlen", "slices", "default"):
-        return "default"
-    if impl == "cuda" and A.format == "dia":
-        impl = "via_dia"
-    if impl == "via_dia" and config.get("value_dtype") in ("bfloat16", "bf16"):
-        return "via_dia_bf16"
-    return impl
-
-
 def kernel_speed_of_light(A, config=None, x=None) -> dict | None:
     """The port's price of A's plan under `config` (default_config(A, x) if
     None): the cost model's predicted µs of its impl class on this card
@@ -89,7 +76,7 @@ def kernel_speed_of_light(A, config=None, x=None) -> dict | None:
     from cusp_autotuned_tpu_torch.kernels.variants import default_config
 
     config = dict(config or default_config(A, x))
-    label = _label(A, config)
+    label = cost_model.label_of(A, config)
     pred = cost_model.predict(A, x, allow_low_precision=True).get(label, {})
     if "us" not in pred:
         return None

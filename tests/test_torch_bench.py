@@ -95,3 +95,18 @@ def test_sweep_keys_are_bench_pys():
     # the irreplaceable rows come first
     assert bench.SWEEP_KEYS[:4] == ("cgcu_impl", "cgcu_1m_iters", "cgcu_1m_s",
                                     "cgcu_1m_ms_per_iter")
+
+
+def test_working_bytes_count_what_a_call_moves():
+    """bench.working_bytes, the set time_cold keeps out of L2: the
+    headline's dia_bytes in f32, half the diagonals' bytes in bf16, and
+    x and y k times over for a block of k columns."""
+    import torch
+    A = gallery.poisson5pt(30, 30, format="dia", device="cpu")
+    x, X = torch.ones(A.num_cols), torch.ones(A.num_cols, 16)
+    vectors = (A.num_rows + A.num_cols) * 4
+    assert bench.working_bytes(A, {"impl": "cuda"}, x) == bench.dia_bytes(A)
+    assert bench.working_bytes(A, {"impl": "cuda", "value_dtype": "bfloat16"}, x) \
+        == A.data.numel() * 2 + vectors
+    assert bench.working_bytes(A, {"impl": "cuda"}, X) \
+        == A.data.numel() * 4 + 16 * vectors

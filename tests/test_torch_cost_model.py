@@ -176,3 +176,26 @@ def test_dynamic_walk_runs_in_model_order():
         cost_model.recommend_config(A)[0]["impl"]]
     np.testing.assert_allclose(tuner.tune_iteration(A, x).numpy(),
                                reference_spmv(A, x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "dia"])
+def test_label_of_orders_and_prices_alike(fmt):
+    """cost_model.label_of is the one map from a configuration to its
+    priced label: model_order_key and kernel_speed_of_light read it."""
+    from cusp_autotuned_tpu_torch.autotune import cost_model
+    from cusp_autotuned_tpu_torch.utils import profiling
+    A = gallery.poisson5pt(30, 30, format=fmt, device="cpu")
+    pred = cost_model.predict(A, allow_low_precision=True)
+    key = cost_model.model_order_key(A)
+    cases = {"segsum": "default", "default": "default", "via_dia": "via_dia",
+             "cuda": "via_dia" if fmt == "dia" else "cuda", "routed": "routed"}
+    for impl, label in cases.items():
+        cfg = {"impl": impl}
+        assert cost_model.label_of(A, cfg) == label
+        assert key(cfg) == pred.get(label, {}).get("us", float("inf"))
+        sol = profiling.kernel_speed_of_light(A, cfg)
+        assert sol is None or sol["label"] == label
+    bf16 = {"impl": "cuda" if fmt == "dia" else "via_dia", "value_dtype": "bfloat16"}
+    assert cost_model.label_of(A, bf16) == "via_dia_bf16"
+    assert key(bf16) == min(pred["via_dia"]["us"], pred["via_dia_bf16"]["us"])
+    assert key({"impl": "no such impl"}) == float("inf")

@@ -4,6 +4,7 @@ the useful-byte models (benchmarks/bytes_per_spmv.py), l2_error
 checks it), and every timing entry point refusing a CPU device: a CPU
 time never stands in for the card's."""
 
+import dataclasses
 import sys
 
 import jax
@@ -108,6 +109,10 @@ def _cpu_calls():
         "stream_bandwidth_gbps": lambda: harness.stream_bandwidth_gbps("cpu"),
         "launch_floor_s": lambda: harness.launch_floor_s("cpu"),
         "profile_spmv": lambda: profiling.profile_spmv(A, xa, stream_gbps=1.0),
+        "time_cold": lambda: harness.time_cold(
+            lambda i: (lambda v: v * 2, (x,)), 32, device="cpu"),
+        "cold_call": lambda: harness.cold_call(
+            lambda i: (lambda v: v * 2, (x,)), 32, device="cpu"),
     }
 
 
@@ -127,3 +132,28 @@ def test_probe_mains_need_a_card(main, monkeypatch):
     with pytest.raises(InvalidInputException):
         main()
 
+
+def _tensors(M):
+    """Every tensor of the container M, those of its parts too."""
+    out = []
+    for f in dataclasses.fields(M):
+        v = getattr(M, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out += _tensors(v)
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["csr", "dia", "hyb"])
+def test_fresh_copies_own_every_tensor(fmt):
+    """harness.fresh, which gives time_cold's copies: equal values, no
+    storage shared with the original, metadata kept."""
+    A = gallery.poisson5pt(6, 7, format=fmt, device="cpu")
+    B = harness.fresh(A)
+    ta, tb = _tensors(A), _tensors(B)
+    assert len(ta) == len(tb) > 0 and B.shape == A.shape and B.nnz == A.nnz
+    for a, b in zip(ta, tb):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    d = harness.fresh({"w": (torch.ones(3), [torch.zeros(2)]), "n": 5})
+    assert d["n"] == 5 and torch.equal(d["w"][1][0], torch.zeros(2))
