@@ -82,13 +82,17 @@ Phases:
   dia_spmv     the DIA kernel against its plain PyTorch version on the
                card, at the main path's shape (f32 and bf16 storage) and at
                the JAX package's DIA test shapes
-  csr_spmv     the CSR kernel against its plain version: poisson5pt
-               1000x1000 and a seeded 1M-row matrix with skewed row lengths
+  csr_spmv     the nnz-balanced CSR kernel against its plain version:
+               poisson5pt 1000x1000, a seeded 1M-row matrix with skewed row
+               lengths and williams_suite(2.0)'s LP, two calls bitwise
+               equal; each also L2-cold (harness.time_cold) beside
+               cuSPARSE and the bound (queue row 4)
   binned_spmv, coo_spmv
                the row-binned and the nnz-balanced COO kernels against
                their plain versions on four matrices: poisson5pt 1000x1000,
                the skewed 1M-row matrix, a uniform random 1M x 1M matrix
-               (~8 entries a row) and a power-law 1M-row matrix
+               (~8 entries a row) and a power-law 1M-row matrix; the COO
+               kernel on poisson also L2-cold beside cuSPARSE (row 6)
   dia_spmm     the DIA SpMM kernel against its plain version: poisson5pt
                1000x1000 at k = 3, 16 and 128 in f32 and bf16 storage, and
                the JAX package's DIA SpMM test shapes
@@ -110,7 +114,9 @@ Phases:
                entries, a vector and k = 16, rtol 1e-6, and the banded
                product against the unsharded DIA kernel's
   launch_floor, dia_probe, dia_spmm_probe, routed_probe
-               the measurement path's four kernels in every mode against
+               harness.launch_floor_s through the launch path before and
+               after its trim (kernels/_build.py), in turns; then the
+               measurement path's four kernels in every mode against
                their plain versions (the launch floor bit for bit; DIA at
                rtol 1e-5, atol 1e-4; routed at the rails' 1e-4 of each
                row's sum of |a x|), and each probe's shipped mode against
@@ -162,7 +168,6 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
 DIA_RTOL, DIA_ATOL = 1e-5, 1e-4      # tests/test_pallas.py:22
-CSR_RTOL, CSR_ATOL = 1e-4, 1e-4      # tests/test_pallas.py:97
 RAIL_RTOL, RAIL_ATOL = 1e-4, 1e-4    # tests/test_pallas.py:161
 SAMPLES, PER_SAMPLE = 25, 20         # timed samples per version and turn,
                                      # back-to-back launches per sample
@@ -189,10 +194,12 @@ MESH_ENTRIES = 4
 BAND_RTOL = 1e-6                     # a band's rows are the unsharded kernel's
 SHARDED_CG_RTOL = 1e-4               # __graft_entry__.py:99 (x of the CG variants)
 ROW12_RTOL = 1e-5                    # relative to ||y||
-# the kernels each wrapper launches, each once a call (the COO wrappers'
-# torch.zeros adds a fill kernel, which is PyTorch's own)
+# the kernels each wrapper launches, each once a call (the CSR fold where
+# the plan has two tiles or more; the COO SpMM wrapper's torch.zeros adds a
+# fill kernel, which is PyTorch's own)
 WRAPPER_KERNELS = {
-    "dia_spmv": ("dia_spmv_kernel",), "csr_spmv": ("csr_spmv_kernel",),
+    "dia_spmv": ("dia_spmv_kernel",),
+    "csr_spmv": ("csr_tile_kernel", "csr_fold_kernel"),
     "binned_spmv": ("binned_spmv_kernel",),
     "coo_spmv": ("coo_chunk_kernel", "coo_fold_kernel"),
     "stream_triad": ("stream_triad_kernel",), "dia_spmm": ("dia_spmm_kernel",),
@@ -498,25 +505,68 @@ def describe(name, A):
         f"{int((lengths == 0).sum())} empty")
 
 
+def cold_line(label, fn, x, nbytes, library=None):
+    """Print fn's and the library call's L2-cold times (harness.time_cold:
+    device ms from a graph's replay, ms a call back to back), beside the
+    bound at the data-sheet rate.  fn is a plan (planned_arrays, apply), so
+    that each copy holds arrays of its own; library is a sparse CSR tensor."""
+    from cusp_autotuned_tpu_torch.benchmarks import harness
+
+    def build(i):
+        return (fn, (x,)) if i == 0 else (fn.apply, (
+            harness.fresh(fn.planned_arrays), x.clone()))
+    dev, call = harness.time_cold(build, nbytes, samples=RAIL_SAMPLES)
+    line = (f"  {label}, L2-cold: {dev * 1e3:.4f} ms device, {call * 1e3:.4f} "
+            f"ms a call; bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    if library is not None:
+        ldev, lcall = harness.time_cold(
+            lambda i: ((lambda S, v: S @ v), (library, x) if i == 0
+                       else (library.clone(), x.clone())), nbytes,
+            samples=RAIL_SAMPLES)
+        line += f"; cuSPARSE {ldev * 1e3:.4f} ms device, {lcall * 1e3:.4f} ms a call"
+    log(line)
+
+
+def lp_csr(device):
+    """williams_suite(SUITE_SCALE)'s LP: 2,000 rows of ~1,300 entries."""
+    from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    S = gallery.williams_suite(SUITE_SCALE, names=("LP",))["LP"]
+    return from_scipy(S, "csr", dtype=torch.float32, device=device)
+
+
 def csr_phase(device, triad_gbps, matrices):
     from cusp_autotuned_tpu_torch.kernels.csr import build_csr, csr_spmv_plain
 
-    log("csr_spmv: kernel vs plain on the card, rtol 1e-4 atol 1e-4; useful "
-        "bytes = nnz*(sizeof(val)+4) + (m+1)*4 + (n+m)*4")
+    log("csr_spmv (row 4): the nnz-balanced tile kernel vs plain on the card, "
+        "atol 1e-4 plus rtol 1e-4 of each row's sum of |a_ij x_j| (the tile "
+        "carries change the order of summation); useful bytes = "
+        "nnz*(sizeof(val)+4) + (m+1)*4 + (n+m)*4")
     results = {}
-    for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
-        A = matrices[name]
+    cases = [(name, matrices[name]) for name in ("poisson5pt 1000x1000 f32",
+                                                 "random 1M rows, skewed")]
+    cases.append(("Williams LP (suite 2.0)", lp_csr(device)))
+    for name, A in cases:
         fn = build_csr(A, {})
         a = fn.planned_arrays
         x = seeded_x(A.num_cols, 4, device)
         useful = A.nnz * (a["val"].element_size() + 4) + (2 * A.num_rows + 1
                                                           + A.num_cols) * 4
         describe(name, A)
+        scale = csr_spmv_plain(a["row"], a["col"], a["val"].abs().double(),
+                               x.abs().double(), A.num_rows).float()
+        S = sparse_csr(A)
         results[name] = compare(
             name, lambda: fn(x),
             lambda: csr_spmv_plain(a["row"], a["col"], a["val"], x, A.num_rows),
-            CSR_RTOL, CSR_ATOL, useful, 2 * A.nnz, triad_gbps,
-            library_spmv(A, x))
+            RAIL_RTOL, RAIL_ATOL, useful, 2 * A.nnz, triad_gbps,
+            library_spmv(A, x, S), scale=scale)
+        first, second = fn(x), fn(x)
+        if not torch.equal(first, second):
+            raise RuntimeError(f"csr_spmv {name}: two calls differ")
+        cold_line(f"row 4: csr {name} ({fn.plan_stats['tiles']} tiles of "
+                  f"{fn.plan_stats['tile']})", fn, x, useful, S)
+        del fn, a, scale, S
     return results["poisson5pt 1000x1000 f32"]
 
 
@@ -558,6 +608,11 @@ def rails_phase(device, triad_gbps, matrices):
             lambda: coo_spmv_plain(c["row"], c["col"], c["val"], x, m),
             RAIL_RTOL, RAIL_ATOL, nnz * 12 + (n + m) * 4, 2 * nnz, triad_gbps,
             library, RAIL_SAMPLES, scale)
+        if name == "poisson5pt 1000x1000 f32":
+            if not torch.equal(fc(x), fc(x)):
+                raise RuntimeError("coo_spmv: two calls differ")
+            cold_line(f"row 6: coo {name}", fc, x, nnz * 12 + (n + m) * 4,
+                      sparse_csr(A))
         del fb, fc, a, c, scale
     return {k: v["poisson5pt 1000x1000 f32"] for k, v in out.items()}
 
@@ -1565,8 +1620,8 @@ def band_phase(device, triad_gbps, A_csr, S):
     a vector and k = 16, and the banded product against the unsharded DIA
     kernel's; band 0 timed.  Then queue row 12: the binned and COO kernels
     on band 0's plan of the skewed 1M-row matrix S, timed against their
-    plain versions and cuSPARSE on the same band.  Returns the two band
-    kernels' records."""
+    plain versions and cuSPARSE on the same band, the COO kernel also
+    L2-cold.  Returns the two band kernels' records."""
     from cusp_autotuned_tpu_torch import parallel
     from cusp_autotuned_tpu_torch.kernels.binned import binned_spmv_plain
     from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmv_plain
@@ -1644,11 +1699,17 @@ def band_phase(device, triad_gbps, A_csr, S):
                 return coo_spmv_plain(a["row"], a["col"], a["val"], x, rows)
             useful = nnz * 12 + (S.num_cols + rows) * 4
         S0 = band_csr(S, 0, rows)
-        compare(f"row 12: {name} on band 0 of {MESH_ENTRIES} of the skewed 1M-row "
-                f"matrix ({rows} rows, {nnz} entries)",
-                lambda op=op, a=a: op.band_apply(a, x, 0), plain, RAIL_RTOL,
+        label = (f"row 12: {name} on band 0 of {MESH_ENTRIES} of the skewed 1M-row "
+                 f"matrix ({rows} rows, {nnz} entries)")
+        compare(label, lambda op=op, a=a: op.band_apply(a, x, 0), plain, RAIL_RTOL,
                 RAIL_ATOL, useful, 2 * nnz, triad_gbps,
                 library=lambda S0=S0: S0 @ x, samples=RAIL_SAMPLES, scale=scale)
+        if name == "coo":
+            def band(v, op=op, a=a):
+                return op.band_apply(a, v, 0)
+            band.planned_arrays = a
+            band.apply = lambda arrs, v, op=op: op.band_apply(arrs, v, 0)
+            cold_line(label, band, x, useful, S0)
     return records
 
 
@@ -1835,6 +1896,43 @@ def check_equal(name, y, y_shipped):
                            f"diff {float((y - y_shipped).abs().max()):.3e}")
 
 
+def earlier_launch(stem, store, device, *args):
+    """kernels/_build.py's launch as it was before its per-call path was
+    trimmed: the symbol looked up by name, the device entered and the
+    current stream read through torch.cuda on every call.  Only
+    launch_floor_turns calls it, as the 'before' of the launch path."""
+    from cusp_autotuned_tpu_torch.kernels import _build
+    lib = _build.library()
+    fn = getattr(lib, f"{stem}_{_build.STORAGE[store][0]}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                    for a in args), stream)
+    if code != 0:
+        raise RuntimeError(f"{stem} launch failed: "
+                           f"{lib.cusp_error_string(code).decode()}")
+
+
+def launch_floor_turns(device):
+    """harness.launch_floor_s through the earlier launch path and through
+    the shipped one, in turns (before, after, after, before)."""
+    from cusp_autotuned_tpu_torch.benchmarks import harness
+    from cusp_autotuned_tpu_torch.kernels import _build
+    shipped = _build.launch
+    got = {"before": [], "after": []}
+    for turn in ("before", "after", "after", "before"):
+        _build.launch = earlier_launch if turn == "before" else shipped
+        try:
+            got[turn].append(harness.launch_floor_s(device))
+        finally:
+            _build.launch = shipped
+    for turn, floors in got.items():
+        log(f"launch path {turn} the trim: " + "; ".join(
+            f"{f['per_call_s'] * 1e6:.3f} us a launch back to back, "
+            f"{f['graph_s'] * 1e6:.3f} us in a graph, host {f['host_s'] * 1e6:.3f} us"
+            for f in floors))
+
+
 def probes_phase(device, triad_gbps):
     """The four probe kernels in every mode against their plain versions on
     the card, and each probe's shipped mode against the shipped kernel bit
@@ -1854,6 +1952,7 @@ def probes_phase(device, triad_gbps):
         "launch_floor (8, 128) f32", lambda: harness.launch_floor(x),
         lambda: harness.launch_floor_plain(x), 0.0, 0.0, 8 * x.numel(),
         2 * x.numel(), triad_gbps)
+    launch_floor_turns(device)
 
     A = gallery.poisson5pt(1000, 1000, format="dia", device=device)
     x = seeded_x(A.num_cols, 0, device)

@@ -17,14 +17,15 @@ this model prices each launch plan of the port's impls on one card
     group) pair of the pattern, at gather_scale x the index_select probe's
     price an element, or at the take probe's price (tile_take_ns / 16384)
     for the entries whose x window the routed plan stages in shared memory;
-    and the lane-iterations it issues, idle lanes included (a warp a row
-    for the csr `cuda` kernel, length-binned teams for binned, K teams a
-    row for colsort2, a thread a row for routed, a lane an entry for
-    colsort), at lane_ns each;
+    and the lane-iterations it issues, idle lanes included (a lane an
+    entry for the csr `cuda` kernel's tiles, length-binned teams for
+    binned, K teams a row for colsort2, a thread a row for routed, a lane
+    an entry for colsort), at lane_ns each;
   - the latency of its longest thread's chain of dependent round trips
     (a thread a row walks routed's longest row; the DIA kernel walks every
-    diagonal for each row; colsort's fold walks the chunks of its longest
-    row), at serial_us (serial_dia_us for the DIA kernel) each.
+    diagonal for each row; the carry folds of the csr `cuda` kernel and of
+    colsort walk the tiles or chunks of the longest row), at serial_us
+    (serial_dia_us for the DIA kernel) each.
 
 The constants below were fitted on an NVIDIA H100 80GB HBM3 at a 700 W
 power limit by `python -m cusp_autotuned_tpu_torch.autotune.fit_cost_model`
@@ -42,29 +43,31 @@ import numpy as np
 
 from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE, HUB_CAP
 from cusp_autotuned_tpu_torch.kernels.colsort2 import HUB_SPLIT, auto_hub_cap, team_lanes
+from cusp_autotuned_tpu_torch.kernels.csr import ENTRIES_PER_THREAD
 from cusp_autotuned_tpu_torch.kernels.routed import MAX_TAIL, STAGE_MIN_FILL
 
 # Measured and fitted on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
-# fit_cost_model.py (368 plans on 31 matrices; model / measured median
-# 1.011, quartiles 0.856 and 1.262).  calibrate() measures the first four on
-# the card in use.
+# fit_cost_model.py (368 plans on 31 matrices, with the csr `cuda` kernel
+# priced as nnz-balanced tiles and colsort as two launches; model /
+# measured median 1.050, quartiles 0.860 and 1.246).  calibrate() measures
+# the first four on the card in use.
 DEVICE_MODEL: Dict[str, float] = dict(
-    stream_gbps=3065.75,      # stream triad, GB/s
-    gather_ns=0.010976,       # index_select, ns an element (4M elements)
-    segsum_ns=0.012268,       # sorted index_add_, ns an element
-    tile_take_ns=6.6630,      # take probe: one pass over a (128, 128) tile
-    launch_us=2.25146,        # a kernel launch inside a graph replay
-    lane_ns=0.00236275,       # one lane-iteration of a sparse kernel
-    gather_scale=0.164415,    # an x sector / the index_select element price
-    serial_us=0.10897,        # one dependent round trip of a thread's chain
-    serial_dia_us=0.111874,   # one diagonal of the DIA kernel's row loop
+    stream_gbps=3063.20,      # stream triad, GB/s
+    gather_ns=0.010401,       # index_select, ns an element (4M elements)
+    segsum_ns=0.012065,       # sorted index_add_, ns an element
+    tile_take_ns=6.6071,      # take probe: one pass over a (128, 128) tile
+    launch_us=2.25222,        # a kernel launch inside a graph replay
+    lane_ns=0.00208385,       # one lane-iteration of a sparse kernel
+    gather_scale=0.241937,    # an x sector / the index_select element price
+    serial_us=0.114202,       # one dependent round trip of a thread's chain
+    serial_dia_us=0.113519,   # one diagonal of the DIA kernel's row loop
     eff_dia=1.0,              # streamed-byte rate / triad rate, per impl
-    eff_dense=0.664066,
+    eff_dense=0.909753,
     eff_cuda=1.0,
     eff_binned=1.0,
-    eff_colsort=1.0,
-    eff_colsort2=0.713134,
-    eff_routed=1.0,
+    eff_colsort=0.981433,
+    eff_colsort2=0.646379,
+    eff_routed=0.999933,
 )
 
 RAILS = ("cuda", "binned", "colsort", "colsort2", "routed")
@@ -150,14 +153,16 @@ def _block_slots(steps: np.ndarray, rows_per_block: int, block: int) -> int:
     return int(block * padded.reshape(-1, r).max(axis=1).sum())
 
 
-# The launch shapes the model prices.  Each rail's block size, colsort's
-# values_per_thread and routed's window are the values that led the most
-# walks on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's walks); the
+# The launch shapes the model prices.  Each rail's block size and routed's
+# window are the values that led the most walks on an NVIDIA H100 80GB HBM3
+# at 700 W (chip_smoke.py's walks), colsort's values_per_thread and block
+# the fastest of benchmarks/spmv_tiles.py's sweep of the two-launch COO
+# kernel (16 entries a lane, the old walks' leader, is now the slowest); the
 # axes that change a plan's shape by the pattern (binned's threads_per_row,
 # colsort2's planes and virtual-row length) are priced at each value.
 CUDA_BLOCK = 256
 BINNED_BLOCK, BINNED_TPR = 512, (0, 1, 4)
-COLSORT_BLOCK, COLSORT_VPT = 512, 16
+COLSORT_BLOCK, COLSORT_VPT = 256, 4
 COLSORT2_BLOCK = 256
 ROUTED_BLOCK, ROUTED_WINDOW = 256, 4096
 
@@ -171,9 +176,12 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     d = deg.astype(np.int64)
     dmax = int(d.max()) if d.size else 0
     out: Dict[str, Any] = {}
-    s = _steps(d, 32)
-    out["cuda"] = [(_block_slots(s, CUDA_BLOCK // 32, CUDA_BLOCK), 1,
-                    2 * int(s.max(initial=1)),
+    # the tiled CSR kernel: a lane an entry (each tile's rows are then
+    # summed from shared memory), and the carry fold for the long rows that
+    # tiles cut, whose chain walks the tiles of the longest row
+    tile = CUDA_BLOCK * ENTRIES_PER_THREAD
+    tiles = max(1, -(-nnz // tile))
+    out["cuda"] = [(tiles * tile, 1 + (tiles > 1), 4 + -(-dmax // tile),
                     {"impl": "cuda", "block_size": CUDA_BLOCK})]
     hub = d > HUB_CAP
     out["binned"] = []
@@ -191,10 +199,11 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
         out["binned"].append((slots, 1, 2 * int(steps.max(initial=1)),
                               {"impl": "binned", "threads_per_row": tpr,
                                "block_size": BINNED_BLOCK}))
-    # the carry fold adds a row's partials chunk by chunk: a chain as long as
-    # the chunks the longest row spans
-    out["colsort"] = [(int(nnz), 3,
-                       2 * COLSORT_VPT + -(-dmax // (32 * COLSORT_VPT)),
+    # a lane's run loads four entries a round trip; the carry fold adds a
+    # row's partials chunk by chunk: a chain as long as the chunks the
+    # longest row spans
+    out["colsort"] = [(int(nnz), 2,
+                       2 * -(-COLSORT_VPT // 4) + -(-dmax // (32 * COLSORT_VPT)),
                        {"impl": "colsort", "values_per_thread": COLSORT_VPT,
                         "block_size": COLSORT_BLOCK})]
     cap = auto_hub_cap(nnz, m)
@@ -260,7 +269,7 @@ def _rail_bytes(impl, m, n, nnz, v, staged_windows=0) -> float:
     if impl == "binned":
         return base + 4 * m                        # the row permutation
     if impl == "colsort":
-        return nnz * (v + 8) + (2 * m + n) * v     # row ids; y zero-filled
+        return nnz * (v + 8) + (m + n) * v         # row ids
     if impl == "routed":
         return base + staged_windows * ROUTED_WINDOW * v  # staged from L2
     return base
@@ -310,7 +319,7 @@ def predict(A, x=None, device: Optional[Dict[str, float]] = None,
     refuse (the tuner's skippable results).  Labels: default (the format's
     plain path), via_dense, via_dia (the DIA kernel, through a conversion
     unless A is DIA), via_dia_bf16 (with allow_low_precision), and for the
-    other formats the kernels cuda (a warp a row), binned, colsort,
+    other formats the kernels cuda (nnz-balanced tiles), binned, colsort,
     colsort2 and routed.  A complex matrix has only the default: the
     kernels take real values only."""
     from cusp_autotuned_tpu_torch.kernels.variants import _DEFAULTS

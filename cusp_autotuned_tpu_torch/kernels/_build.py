@@ -45,14 +45,16 @@ _SIGNATURES = {
     # data, offsets, ndiag, pitch, X_pad, left, row0, Y, band, k, block, stream
     "cusp_dia_band_spmm": ((_vp, _vp, _i32, _i64, _vp, _i64, _i64, _vp, _i32,
                             _i32, _i32, _vp), _TYPED),
-    # indptr, col, val, x, y, m, block, stream
-    "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp), _TYPED),
+    # indptr, col, val, x, y, m, nnz, tile_row, carry_row, carry_val, ept,
+    # block, stream
+    "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i64, _vp, _vp, _vp, _i32,
+                       _i32, _vp), _TYPED),
     # indptr, col, val, perm, bins (host), nbins, x, y, block, stream
     "cusp_binned_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp),
                          _TYPED),
-    # row, col, val, nnz, x, y, carry_row, carry_val, vpt, block, stream
-    "cusp_coo_spmv": ((_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp, _i32, _i32,
-                       _vp), _TYPED),
+    # row, col, val, nnz, x, y, m, carry_row, carry_val, vpt, block, stream
+    "cusp_coo_spmv": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _vp, _vp, _i32,
+                       _i32, _vp), _TYPED),
     # data, offsets, ndiag, pitch, X, Y, m, n, k, block, stream
     "cusp_dia_spmm": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
                        _vp), _TYPED),
@@ -159,18 +161,37 @@ STORAGE = {
 }
 
 
+def accumulation(store: torch.dtype) -> torch.dtype:
+    """The dtype of x, y and a plan's carries for values stored as `store`
+    (`store` itself where no kernel takes it)."""
+    return STORAGE[store][1] if store in STORAGE else store
+
+
+_BOUND = {}   # (stem, storage dtype) -> the library's function
+
+
+def _bind(stem: str, store: torch.dtype):
+    fn = _BOUND[(stem, store)] = getattr(library(), f"{stem}_{STORAGE[store][0]}")
+    return fn
+
+
 def launch(stem: str, store: torch.dtype, device: torch.device, *args) -> None:
     """Call `{stem}_{suffix}` on `device`'s current stream with `args`
-    (tensors are passed by data pointer); raise if the launch failed."""
-    lib = library()
-    fn = getattr(lib, f"{stem}_{STORAGE[store][0]}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                    for a in args), stream)
-    if code != 0:
+    (tensors are passed by data pointer); raise if the launch failed.  The
+    bound function is looked up once per (stem, storage dtype), and the
+    device is entered only when it is not the current one."""
+    fn = _BOUND.get((stem, store)) or _bind(stem, store)
+    argv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        code = fn(*argv, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*argv, torch._C._cuda_getCurrentRawStream(index))
+    if code:
         raise RuntimeError(f"{stem} launch failed: "
-                           f"{lib.cusp_error_string(code).decode()}")
+                           f"{library().cusp_error_string(code).decode()}")
 
 
 DEFAULT_BLOCK = 256

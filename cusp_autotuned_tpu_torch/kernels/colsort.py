@@ -5,12 +5,16 @@ Replaces the JAX package's column-lane-binned Pallas kernels at their SpMV
 sites, `_main_kernel` (cusp_autotuned_tpu/kernels/pallas_colsort.py:162),
 `_hub_kernel` (:274), `_main_streamed_kernel` (:558) and
 `_hub_streamed_kernel` (:615), with one kernel, `csrc/coo_spmv.cu`, in the
-style of the fork's `coo_warp_reduce`: the row-sorted entry stream is cut
-into chunks of 32 * `values_per_thread` entries, one per warp, summed by a
-segmented warp scan; rows cut by a chunk boundary leave as carries that a
-second small kernel folds into y in order.  Long rows are long segments,
-so there is no separate hub pass.  The SpMM sites, `_main_spmm_kernel`
-(:885) and `_hub_spmm_kernel` (:932) from :426, :500, :751 and :831, become
+style of the fork's COO family and of merge-path: the row-sorted entry
+stream is cut into chunks of 32 * `values_per_thread` entries, one per
+warp; each lane adds up its `values_per_thread` consecutive entries in
+registers and one segmented warp scan a chunk joins the rows that cross
+lanes; rows cut by a chunk boundary leave as carries (planned once with
+the plan) that a second small kernel folds into y in order.  The kernel
+writes every row of y, empty rows as 0, so y needs no zero fill.  Long
+rows are long segments, so there is no separate hub pass.  The SpMM
+sites, `_main_spmm_kernel` (:885) and `_hub_spmm_kernel` (:932) from
+:426, :500, :751 and :831, become
 `csrc/coo_spmm.cu`: the same chunks with lanes over a column tile and a
 carry per chunk end per column, folded in order.
 """
@@ -60,12 +64,14 @@ def _check(row, col, val, x, shape, rank):
         raise InvalidInputException("COO kernel needs contiguous tensors")
 
 
-def coo_spmv(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
-             block=_build.DEFAULT_BLOCK):
-    """y = A @ x for row-sorted entries (row, col, val) with no padding.  On
-    CPU tensors this is the plain version; on CUDA tensors it launches the
-    chunk kernel and the carry fold with `vpt` entries per lane per chunk (a
-    2-D x goes to coo_spmm), and raises on what the kernels do not take."""
+def coo_spmv(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK):
+    """y = A @ x through build_colsort's plan `a`: row-sorted entries (row,
+    col, val) with no padding, and the carry slots (carry_row, carry_val) of
+    its chunks of 32 * `vpt` entries.  On CPU tensors this is the plain
+    version; on CUDA tensors it launches the chunk kernel and the carry fold
+    (a 2-D x goes to coo_spmm), and raises on what the kernels do not
+    take."""
+    row, col, val = a["row"], a["col"], a["val"]
     if x.dim() == 2:
         return coo_spmm(row, col, val, x, shape, vpt, block)
     if x.dim() != 1:
@@ -76,14 +82,21 @@ def coo_spmv(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
         return coo_spmv_plain(row, col, val, x, m)
     _check(row, col, val, x, shape, 1)
     nnz = row.shape[0]
-    y = torch.zeros(m, dtype=x.dtype, device=x.device)
-    if nnz:
-        chunks = -(-nnz // (32 * vpt))
-        carry_row = torch.empty(2 * chunks, dtype=torch.int32, device=x.device)
-        carry_val = torch.empty(2 * chunks, dtype=x.dtype, device=x.device)
-        _build.launch("cusp_coo_spmv", val.dtype, x.device, row, col, val, nnz,
-                      x, y, carry_row, carry_val, vpt, block)
-        coo_spmv.launches += 1
+    carry_row, carry_val = a["carry_row"], a["carry_val"]
+    chunks = -(-nnz // (32 * vpt))
+    if carry_row.shape != (2 * chunks,) or carry_val.shape != (2 * chunks,) \
+            or carry_row.dtype != torch.int32 or carry_val.dtype != x.dtype \
+            or carry_row.device != x.device or carry_val.device != x.device:
+        raise InvalidInputException(
+            f"the plan's carries ({tuple(carry_row.shape)} {carry_row.dtype}, "
+            f"{tuple(carry_val.shape)} {carry_val.dtype}) are not 2 x {chunks} "
+            f"chunks of {32 * vpt} entries for x of {x.dtype} on {x.device}")
+    if not (nnz and m):
+        return torch.zeros(m, dtype=x.dtype, device=x.device)
+    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    _build.launch("cusp_coo_spmv", val.dtype, x.device, row, col, val, nnz, x, y,
+                  m, carry_row, carry_val, vpt, block)
+    coo_spmv.launches += 1
     return y
 
 
@@ -120,7 +133,9 @@ def build_colsort(A, config):
     to nnz (CSR's expanded rows as they are, a row-sorted COO as it is,
     anything else through a host conversion to CSR), values in the storage
     dtype that `value_dtype` names, `values_per_thread` entries per lane per
-    chunk and `block_size` threads per block.  An empty matrix raises
+    chunk and `block_size` threads per block, and the chunks' carry slots
+    (two a chunk, in the accumulation dtype), planned here once so that a
+    call allocates nothing but y.  An empty matrix raises
     FormatConversionException (the default path serves it)."""
     if A.dtype.is_complex:
         raise NotImplementedException("COO kernel supports real dtypes only")
@@ -138,13 +153,17 @@ def build_colsort(A, config):
     if A.nnz == 0:
         raise FormatConversionException("empty matrix — use the default path")
     nnz = A.nnz
+    store = plan_value_dtype(config, A.dtype)
+    chunks = -(-nnz // (32 * vpt))
     arrays = {"row": A.row[:nnz].contiguous(), "col": A.col[:nnz].contiguous(),
-              "val": A.val[:nnz].to(plan_value_dtype(config, A.dtype)).contiguous()}
+              "val": A.val[:nnz].to(store).contiguous(),
+              "carry_row": torch.empty(2 * chunks, dtype=torch.int32, device=A.device),
+              "carry_val": torch.empty(2 * chunks, dtype=_build.accumulation(store),
+                                       device=A.device)}
     shape = A.shape
 
     def apply(arrays, x):
-        return coo_spmv(arrays["row"], arrays["col"], arrays["val"], x, shape,
-                        vpt, block)
+        return coo_spmv(arrays, x, shape, vpt, block)
 
     def fn(x):
         return apply(arrays, x)

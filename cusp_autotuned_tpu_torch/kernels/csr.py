@@ -2,13 +2,17 @@
 plan builder.
 
 Replaces the JAX package's Pallas one-hot kernel, `_onehot_kernel`
-(cusp_autotuned_tpu/kernels/pallas_csr.py:171), with a CSR-vector kernel,
-`csrc/csr_spmv.cu`: one warp per row, no atomics.  The one-hot gather and
-scatter, the block and window planning and the VMEM cap of the TPU kernel
-have no counterpart here; see the source for why.  COO matrices reach the
-kernel through a host conversion to CSR when the plan is built, and so do
-ELL, ELLR and HYB (the JAX package plans every format for its one-hot
-kernel from the matrix's COO view, kernels/pallas_spmv.py:24-27).
+(cusp_autotuned_tpu/kernels/pallas_csr.py:171), with an nnz-balanced tile
+kernel, `csrc/csr_spmv.cu` (the fork's `csr_kernel_balanced`): the entries
+are cut into tiles of `block * ENTRIES_PER_THREAD`, the plan holds the row
+that starts each tile (`tile_row`, one searchsorted over indptr at build
+time) and two carry slots a tile for the rows that tile boundaries cut, and
+a second small kernel folds the carries in tile order.  No atomics.  The
+one-hot gather and scatter, the column windows and the VMEM cap of the TPU
+kernel have no counterpart here; see the source for why.  COO matrices
+reach the kernel through a host conversion to CSR when the plan is built,
+and so do ELL, ELLR and HYB (the JAX package plans every format for its
+one-hot kernel from the matrix's COO view, kernels/pallas_spmv.py:24-27).
 """
 
 from __future__ import annotations
@@ -35,39 +39,69 @@ def csr_spmv_plain(row, col, val, x, num_rows):
     return y[:num_rows]
 
 
-def csr_spmv(indptr, row, col, val, x, shape, block=_build.DEFAULT_BLOCK):
-    """y = A @ x for a CSR matrix.  On CPU tensors this is the plain version
-    (which reads the expanded `row`); on CUDA tensors it launches the kernel
-    (which reads `indptr`) with `block` threads per block, and raises on
-    what the kernel does not take."""
+# entries a thread loads into its tile: a tile holds block * 4 entries
+# (1024 at the default block of 256), the best of 4, 8 and 16 on an H100
+# (benchmarks/spmv_tiles.py --sweep; PERF.md)
+ENTRIES_PER_THREAD = 4
+
+
+def tile_rows(indptr, nnz, tile):
+    """tile_row[t] for t = 0 .. tiles: the row that holds entry t * tile
+    (the last row whose start is at most t * tile; m past the last entry),
+    tiles = ceil(nnz / tile), at least 1.  One searchsorted on indptr's
+    device."""
+    tiles = max(1, -(-nnz // tile))
+    starts = torch.arange(tiles + 1, dtype=torch.int64, device=indptr.device) * tile
+    starts = starts.clamp_(max=nnz).to(indptr.dtype)
+    return (torch.searchsorted(indptr, starts, right=True) - 1).to(torch.int32)
+
+
+def csr_spmv(a, x, shape, block=_build.DEFAULT_BLOCK, ept=ENTRIES_PER_THREAD):
+    """y = A @ x through build_csr's plan `a` (indptr, row, col, val,
+    tile_row, carry_row, carry_val).  On CPU tensors this is the plain
+    version (which reads the expanded `row`); on CUDA tensors it launches
+    the tile kernel and the carry fold (which read `indptr` and the plan's
+    tiles of block * ept entries), and raises on what the kernels do not
+    take."""
     if x.dim() != 1:
         raise NotImplementedException("the CSR kernel takes 1-D x only")
     m, n = shape
+    indptr, col, val = a["indptr"], a["col"], a["val"]
     if x.device.type == "cpu" and val.device.type == "cpu":
-        return csr_spmv_plain(row, col, val, x, m)
-    if not (indptr.device == col.device == val.device == x.device) \
-            or x.device.type != "cuda":
+        return csr_spmv_plain(a["row"], col, val, x, m)
+    tile_row, carry_row, carry_val = a["tile_row"], a["carry_row"], a["carry_val"]
+    dev = x.device
+    if dev.type != "cuda" or not (indptr.device == col.device == val.device
+                                  == tile_row.device == carry_row.device
+                                  == carry_val.device == dev):
         raise InvalidInputException(
-            f"CSR kernel needs indptr, col, val and x on one CUDA device "
-            f"(got {indptr.device}, {col.device}, {val.device}, {x.device})")
-    if val.dtype not in _build.STORAGE or x.dtype != _build.STORAGE[val.dtype][1]:
+            f"CSR kernel needs its plan and x on one CUDA device (got "
+            f"{indptr.device}, {col.device}, {val.device}, {tile_row.device}, "
+            f"{x.device})")
+    store = _build.STORAGE.get(val.dtype)
+    if store is None or x.dtype != store[1] or carry_val.dtype != store[1]:
         raise InvalidInputException(
             f"CSR kernel takes f32/bf16 values with f32 x, or f64 with f64 "
             f"(got {val.dtype} values, {x.dtype} x)")
-    if indptr.dtype != torch.int32 or col.dtype != torch.int32:
-        raise InvalidInputException("indptr and col must be int32")
-    if indptr.shape != (m + 1,) or x.shape != (n,) or col.shape != val.shape:
+    if indptr.dtype != torch.int32 or col.dtype != torch.int32 \
+            or tile_row.dtype != torch.int32 or carry_row.dtype != torch.int32:
+        raise InvalidInputException("indptr, col and the plan's rows must be int32")
+    nnz = col.shape[0]
+    tiles = tile_row.shape[0] - 1
+    if indptr.shape != (m + 1,) or x.shape != (n,) or col.shape != val.shape \
+            or tiles != max(1, -(-nnz // (block * ept))) \
+            or carry_row.shape != (2 * tiles,) or carry_val.shape != (2 * tiles,):
         raise InvalidInputException(
             f"shape mismatch: indptr {tuple(indptr.shape)}, col "
             f"{tuple(col.shape)}, val {tuple(val.shape)}, x {tuple(x.shape)}, "
-            f"matrix {shape}")
-    if not (indptr.is_contiguous() and col.is_contiguous()
-            and val.is_contiguous() and x.is_contiguous()):
+            f"{tiles} tiles for tiles of {block * ept}, matrix {shape}")
+    if not (indptr.is_contiguous() and col.is_contiguous() and val.is_contiguous()
+            and x.is_contiguous() and tile_row.is_contiguous()):
         raise InvalidInputException("CSR kernel needs contiguous tensors")
-    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    y = torch.empty(m, dtype=x.dtype, device=dev)
     if m:
-        _build.launch("cusp_csr_spmv", val.dtype, x.device,
-                      indptr, col, val, x, y, m, block)
+        _build.launch("cusp_csr_spmv", val.dtype, dev, indptr, col, val, x, y, m,
+                      nnz, tile_row, carry_row, carry_val, ept, block)
         csr_spmv.launches += 1
     return y
 
@@ -79,7 +113,9 @@ def build_csr(A, config):
     """Plan A for the kernel: CSR as it is; any other format through its
     entries (ELL's -1 slots dropped) converted to CSR on the host.  Values
     are in the storage dtype that `value_dtype` names, and the launch has
-    `block_size` threads per block.  Complex values raise
+    `block_size` threads per block, so tiles of block_size *
+    ENTRIES_PER_THREAD entries: `tile_row` and the carry slots are planned
+    here, on A's device, once.  Complex values raise
     NotImplementedException here, at build time."""
     if A.dtype.is_complex:
         raise NotImplementedException("CSR kernel supports real dtypes only")
@@ -88,17 +124,26 @@ def build_csr(A, config):
         A = convert(A, "csr")
     store = plan_value_dtype(config, A.dtype)
     block = _build.block_size(config)
-    arrays = {"indptr": A.indptr, "row": A.row, "col": A.col,
-              "val": A.val.to(store).contiguous()}
+    ept = ENTRIES_PER_THREAD
+    tile = block * ept
+    nnz = A.nnz
+    col, val = A.col[:nnz].contiguous(), A.val[:nnz].to(store).contiguous()
+    tile_row = tile_rows(A.indptr, nnz, tile)
+    tiles = tile_row.shape[0] - 1
+    arrays = {"indptr": A.indptr, "row": A.row[:nnz], "col": col, "val": val,
+              "tile_row": tile_row,
+              "carry_row": torch.empty(2 * tiles, dtype=torch.int32, device=A.device),
+              "carry_val": torch.empty(2 * tiles, dtype=_build.accumulation(store),
+                                       device=A.device)}
     shape = A.shape
 
     def apply(arrays, x):
-        return csr_spmv(arrays["indptr"], arrays["row"], arrays["col"],
-                        arrays["val"], x, shape, block)
+        return csr_spmv(arrays, x, shape, block, ept)
 
     def fn(x):
         return apply(arrays, x)
 
     fn.planned_arrays = arrays
     fn.apply = apply
+    fn.plan_stats = {"impl": "cuda", "tile": tile, "tiles": tiles}
     return fn

@@ -13,8 +13,8 @@ impls:
   and, for csr/coo/ell/ellr/hyb:
               via_dia (re-lay the matrix out as DIA and run the inner DIA
               impl `dia_impl`), via_dense (densify, torch.matmul), cuda
-              (the matrix's entries planned as CSR for csrc/csr_spmv.cu,
-              vectors only), binned (csrc/binned_spmv.cu and, for a dense
+              (the matrix's entries planned as CSR in nnz-balanced tiles
+              for csrc/csr_spmv.cu, vectors only), binned (csrc/binned_spmv.cu and, for a dense
               block x (n, k), csrc/binned_spmm.cu), colsort
               (csrc/coo_spmv.cu, csrc/coo_spmm.cu), colsort2 (virtual rows
               in K planes and a degree-sorted hub region,
@@ -181,7 +181,8 @@ BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
 # colsort2 row share a block (up to 4 x 32 lanes), and a routed block's
 # rows share each staged window
 WIDE_BLOCKS = (256, 512)
-# binned: 0 = binned by length; a warp a row (32) is the `cuda` impl
+# binned: 0 = binned by length (up to a warp a row); the nnz-balanced
+# tiles of the `cuda` impl need no lanes-per-row axis
 THREADS_PER_ROW = (0, 1, 4)
 VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
 VROW_PLANES = (1, 2, 4)                   # colsort2: K planes
@@ -193,7 +194,7 @@ def default_config(A, x=None) -> Dict[str, Any]:
     """The untuned configuration: on a CUDA device a kernel, the plain path
     on the CPU.  For a vector x that is the `cuda` impl; for a dense block
     x (n, k) the DIA SpMM kernel for dia and the binned SpMM kernel for the
-    other formats, since the CSR kernel (warp per row) takes vectors only,
+    other formats, since the CSR kernel (nnz-balanced tiles) takes vectors only,
     as the JAX package's `pallas` impl does.  A complex matrix takes the
     plain path on any device: the kernels take real values only."""
     cfg = dict(_DEFAULTS[A.format])
@@ -207,8 +208,9 @@ def tuning_space(A) -> TuningSpace:
     """The constrained tuning space of a matrix's format.  `impl` is the
     kernel strategy, including the format-selection moves; `dia_impl` the
     inner DIA impl of via_dia; `block_size` the threads per block of every
-    CUDA launch; `threads_per_row` binned's lanes per row (not 32: a warp a
-    row is csrc/csr_spmv.cu, the `cuda` impl); `values_per_thread`
+    CUDA launch (for the `cuda` impl it also sets the tile, block_size *
+    kernels/csr.py's ENTRIES_PER_THREAD entries); `threads_per_row`
+    binned's lanes per row; `values_per_thread`
     colsort's chunk; `vrow_planes` and `vrow_len` colsort2's planes and
     virtual-row length, `window` routed's staged columns, both on blocks
     of 256 or 512 threads (45 configurations for csr and coo).

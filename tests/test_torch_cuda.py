@@ -32,7 +32,9 @@ from cusp_autotuned_tpu_torch.kernels.colsort2 import (
     build_colsort2, colsort2_hub, colsort2_hub_spmm, colsort2_spmm, colsort2_spmv,
     colsort2_spmv_plain,
 )
-from cusp_autotuned_tpu_torch.kernels.csr import build_csr, csr_spmv, csr_spmv_plain
+from cusp_autotuned_tpu_torch.kernels.csr import (
+    ENTRIES_PER_THREAD, build_csr, csr_spmv, csr_spmv_plain,
+)
 from cusp_autotuned_tpu_torch.kernels.dia import (
     build_dia, dia_spmm, dia_spmv, dia_spmv_plain,
 )
@@ -259,6 +261,120 @@ def test_dia_and_csr_block_sizes_on_card(cuda_device, block):
         y, yp, launches = case(A, {"block_size": block}, cuda_device)
         assert launches == 1
         torch.testing.assert_close(y, yp, **TOL[fmt])
+
+
+# tests/test_torch_spmv_redesign.py's row-length patterns, which the CPU
+# walks of the two plans cover at tiles of 256 entries (block 64)
+REDESIGN_PATTERNS = {
+    "empty rows at the start, middle and end":
+        [0, 0, 0, 3, 0, 260, 0, 0, 5] + [7, 0, 1] * 30 + [0, 0],
+    "a row over more than 3 tiles": [2, 1000, 3, 0, 4],
+    "nnz below one tile": [5, 0, 7, 9],
+    "nnz a multiple of a tile, a row starting on each tile": [128, 128, 100, 156],
+    "nnz a multiple of a tile, rows cut by the tiles": [200, 100, 150, 62],
+    "m = 1": [600],
+    "3 x 1000": [700, 1000, 300],
+    "no entries": [0, 0, 0, 0],
+}
+STORES = {"f32": (torch.float32, {}), "bf16": (torch.float32,
+                                               {"value_dtype": "bfloat16"}),
+          "f64": (torch.float64, {})}
+
+
+def _pattern_matrix(lengths, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(lengths, np.int64)
+    n = max(1000, int(lengths.max(initial=0)))
+    indptr = np.r_[0, np.cumsum(lengths)]
+    col = np.concatenate([np.sort(rng.choice(n, k, replace=False)) for k in lengths]
+                         + [np.zeros(0, np.int64)])
+    S = sp.csr_matrix((rng.uniform(-1, 1, indptr[-1]), col, indptr),
+                      shape=(lengths.size, n))
+    return from_scipy(S, "csr", dtype=dtype, device=device)
+
+
+def _store_tol(store):
+    return dict(rtol=1e-12, atol=1e-12) if store == "f64" else TOL["csr"]
+
+
+@pytest.mark.parametrize("block", [64, 256])
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("name", list(REDESIGN_PATTERNS))
+def test_tiled_csr_kernel_on_patterns_on_card(cuda_device, name, store, block):
+    """The nnz-balanced CSR kernel on empty rows, rows across many tiles,
+    part and whole tiles, one row and a short wide rectangle: against its
+    plain version, every row written (y starts as torch.empty), and two
+    calls bitwise equal."""
+    dtype, cfg = STORES[store]
+    A = _pattern_matrix(REDESIGN_PATTERNS[name], dtype, cuda_device)
+    y, yp, launches = _csr_case(A, {**cfg, "block_size": block}, cuda_device)
+    assert launches == 1 and y.dtype == dtype
+    torch.testing.assert_close(y, yp, **_store_tol(store))
+    fn = build_csr(A, {**cfg, "block_size": block})
+    x = _x(A.num_cols, cuda_device, dtype)
+    assert torch.equal(fn(x), fn(x))
+
+
+@pytest.mark.parametrize("store", list(STORES))
+def test_tiled_csr_short_rows_do_not_depend_on_the_tiling_on_card(cuda_device, store):
+    """A band planned by itself (as the mesh path plans it) gives the whole
+    matrix's rows bit for bit wherever its rows are short: a short row is
+    summed whole, in order, by the tile where it starts."""
+    dtype, cfg = STORES[store]
+    S = gallery.poisson5pt(300, 200, format="csr", device="cpu").to_scipy()
+    x = _x(S.shape[1], cuda_device, dtype)
+    whole = build_csr(from_scipy(S, "csr", dtype=dtype, device=cuda_device), cfg)(x)
+    for r0 in (1, 7, 2999):
+        band = from_scipy(S[r0:], "csr", dtype=dtype, device=cuda_device)
+        assert S.indptr[r0] % (256 * ENTRIES_PER_THREAD)   # the tiles fall elsewhere
+        assert torch.equal(build_csr(band, cfg)(x), whole[r0:])
+
+
+@pytest.mark.parametrize("vpt", [1, 3, 4, 16])
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("name", [n for n in REDESIGN_PATTERNS if n != "no entries"])
+def test_coo_kernel_on_patterns_on_card(cuda_device, name, store, vpt):
+    """The COO chunk kernel writes every row of y itself (no zero fill):
+    empty rows in a lane, between lanes and between chunks, before the
+    first and after the last entry; against its plain version, and two
+    calls bitwise equal."""
+    dtype, cfg = STORES[store]
+    A = _pattern_matrix(REDESIGN_PATTERNS[name], dtype, cuda_device)
+    fn = build_colsort(A, {**cfg, "values_per_thread": vpt})
+    a = fn.planned_arrays
+    x = _x(A.num_cols, cuda_device, dtype)
+    before = coo_spmv.launches
+    y = fn(x)
+    torch.cuda.synchronize()
+    assert coo_spmv.launches - before == 1 and y.dtype == dtype
+    yp = coo_spmv_plain(a["row"], a["col"], a["val"], x, A.num_rows)
+    torch.testing.assert_close(y, yp, **_store_tol(store))
+    assert torch.equal(fn(x), y)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "colsort"])
+def test_redesigned_plans_allocate_only_y_and_capture_on_card(cuda_device, impl):
+    """A call of either plan launches its two kernels (no fill), allocates
+    y and nothing else, and is captured whole by the harness's CUDA graph
+    (no host sync)."""
+    from torch.profiler import ProfilerActivity, profile
+    from cusp_autotuned_tpu_torch.benchmarks import harness
+    A = from_scipy(_rails_matrix(7), "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_spmv(A, {"impl": impl})
+    x = _x(A.num_cols, cuda_device)
+    fn(x)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
+    y = fn(x)
+    assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] \
+        == allocs + 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(kernels) == 2, [e.name for e in kernels]
+    assert harness.graph_time_s(fn, x) > 0
+    assert torch.equal(fn(x), y)
 
 
 def test_stream_triad_on_card(cuda_device):
