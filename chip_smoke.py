@@ -114,9 +114,7 @@ Phases:
                entries, a vector and k = 16, rtol 1e-6, and the banded
                product against the unsharded DIA kernel's
   launch_floor, dia_probe, dia_spmm_probe, routed_probe
-               harness.launch_floor_s through the launch path before and
-               after its trim (kernels/_build.py), in turns; then the
-               measurement path's four kernels in every mode against
+               the measurement path's four kernels in every mode against
                their plain versions (the launch floor bit for bit; DIA at
                rtol 1e-5, atol 1e-4; routed at the rails' 1e-4 of each
                row's sum of |a x|), and each probe's shipped mode against
@@ -196,7 +194,8 @@ SHARDED_CG_RTOL = 1e-4               # __graft_entry__.py:99 (x of the CG varian
 ROW12_RTOL = 1e-5                    # relative to ||y||
 # the kernels each wrapper launches, each once a call (the CSR fold where
 # the plan has two tiles or more; the COO SpMM wrapper's torch.zeros adds a
-# fill kernel, which is PyTorch's own)
+# fill kernel, which is PyTorch's own, and so does the COO SpMV wrapper's
+# for a plan with a run of more than GAP_ROWS empty rows)
 WRAPPER_KERNELS = {
     "dia_spmv": ("dia_spmv_kernel",),
     "csr_spmv": ("csr_tile_kernel", "csr_fold_kernel"),
@@ -460,18 +459,6 @@ def dia_phase(device, triad_gbps):
     return results["poisson5pt 1000x1000 f32"]
 
 
-def skewed_csr(n, seed, device):
-    """A 1M-row matrix whose row lengths follow a heavy-tailed law (Pareto,
-    1 to 4096 entries a row), with seeded random columns and values."""
-    from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
-    rng = np.random.RandomState(seed)
-    lengths = np.minimum(1 + (4 * rng.pareto(1.5, n)).astype(np.int64), 4096)
-    indptr = np.concatenate([[0], np.cumsum(lengths)])
-    col = rng.randint(0, n, indptr[-1]).astype(np.int32)
-    val = rng.uniform(-1.0, 1.0, indptr[-1]).astype(np.float32)
-    return csr_matrix(indptr, col, val, (n, n), device=device)
-
-
 def uniform_csr(n, per_row, seed, device):
     """An n x n matrix of n * per_row seeded uniform draws, duplicates
     merged: about per_row entries a row, scattered over all columns."""
@@ -506,24 +493,19 @@ def describe(name, A):
 
 
 def cold_line(label, fn, x, nbytes, library=None):
-    """Print fn's and the library call's L2-cold times (harness.time_cold:
-    device ms from a graph's replay, ms a call back to back), beside the
-    bound at the data-sheet rate.  fn is a plan (planned_arrays, apply), so
-    that each copy holds arrays of its own; library is a sparse CSR tensor."""
-    from cusp_autotuned_tpu_torch.benchmarks import harness
-
-    def build(i):
-        return (fn, (x,)) if i == 0 else (fn.apply, (
-            harness.fresh(fn.planned_arrays), x.clone()))
-    dev, call = harness.time_cold(build, nbytes, samples=RAIL_SAMPLES)
-    line = (f"  {label}, L2-cold: {dev * 1e3:.4f} ms device, {call * 1e3:.4f} "
+    """Print fn's and the library call's L2-cold times (spmv_tiles.cold and
+    library_cold, through harness.time_cold: device ms from a graph's
+    replay, ms a call back to back), beside the bound at the data-sheet
+    rate.  fn is a plan (planned_arrays, apply), so that each copy holds
+    arrays of its own; library is a sparse CSR tensor."""
+    from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
+    dev, call = spmv_tiles.cold(fn, x, nbytes, samples=RAIL_SAMPLES)
+    line = (f"  {label}, L2-cold: {dev:.4f} ms device, {call:.4f} "
             f"ms a call; bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
     if library is not None:
-        ldev, lcall = harness.time_cold(
-            lambda i: ((lambda S, v: S @ v), (library, x) if i == 0
-                       else (library.clone(), x.clone())), nbytes,
-            samples=RAIL_SAMPLES)
-        line += f"; cuSPARSE {ldev * 1e3:.4f} ms device, {lcall * 1e3:.4f} ms a call"
+        ldev, lcall = spmv_tiles.library_cold(library, x, nbytes,
+                                              samples=RAIL_SAMPLES)
+        line += f"; cuSPARSE {ldev:.4f} ms device, {lcall:.4f} ms a call"
     log(line)
 
 
@@ -1896,43 +1878,6 @@ def check_equal(name, y, y_shipped):
                            f"diff {float((y - y_shipped).abs().max()):.3e}")
 
 
-def earlier_launch(stem, store, device, *args):
-    """kernels/_build.py's launch as it was before its per-call path was
-    trimmed: the symbol looked up by name, the device entered and the
-    current stream read through torch.cuda on every call.  Only
-    launch_floor_turns calls it, as the 'before' of the launch path."""
-    from cusp_autotuned_tpu_torch.kernels import _build
-    lib = _build.library()
-    fn = getattr(lib, f"{stem}_{_build.STORAGE[store][0]}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                    for a in args), stream)
-    if code != 0:
-        raise RuntimeError(f"{stem} launch failed: "
-                           f"{lib.cusp_error_string(code).decode()}")
-
-
-def launch_floor_turns(device):
-    """harness.launch_floor_s through the earlier launch path and through
-    the shipped one, in turns (before, after, after, before)."""
-    from cusp_autotuned_tpu_torch.benchmarks import harness
-    from cusp_autotuned_tpu_torch.kernels import _build
-    shipped = _build.launch
-    got = {"before": [], "after": []}
-    for turn in ("before", "after", "after", "before"):
-        _build.launch = earlier_launch if turn == "before" else shipped
-        try:
-            got[turn].append(harness.launch_floor_s(device))
-        finally:
-            _build.launch = shipped
-    for turn, floors in got.items():
-        log(f"launch path {turn} the trim: " + "; ".join(
-            f"{f['per_call_s'] * 1e6:.3f} us a launch back to back, "
-            f"{f['graph_s'] * 1e6:.3f} us in a graph, host {f['host_s'] * 1e6:.3f} us"
-            for f in floors))
-
-
 def probes_phase(device, triad_gbps):
     """The four probe kernels in every mode against their plain versions on
     the card, and each probe's shipped mode against the shipped kernel bit
@@ -1952,7 +1897,6 @@ def probes_phase(device, triad_gbps):
         "launch_floor (8, 128) f32", lambda: harness.launch_floor(x),
         lambda: harness.launch_floor_plain(x), 0.0, 0.0, 8 * x.numel(),
         2 * x.numel(), triad_gbps)
-    launch_floor_turns(device)
 
     A = gallery.poisson5pt(1000, 1000, format="dia", device=device)
     x = seeded_x(A.num_cols, 0, device)
@@ -2096,6 +2040,7 @@ def main():
         sys.exit("chip_smoke.py: torch sees no CUDA device; the port's "
                  "kernels run only on a GPU")
     from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
     from cusp_autotuned_tpu_torch.kernels import _build
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2116,7 +2061,7 @@ def main():
     matrices = {
         "poisson5pt 1000x1000 f32": gallery.poisson5pt(1000, 1000, format="csr",
                                                        device=device),
-        "random 1M rows, skewed": skewed_csr(1_000_000, 2, device),
+        "random 1M rows, skewed": spmv_tiles.skewed(1_000_000, 2, device),
         "uniform random 1M x 1M": uniform_csr(1_000_000, 8, 3, device),
         "power-law 1M rows": powerlaw_csr(1_000_000, 10_000_000, 4, device),
     }

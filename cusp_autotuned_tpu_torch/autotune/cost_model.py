@@ -40,10 +40,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE, HUB_CAP
 from cusp_autotuned_tpu_torch.kernels.colsort2 import HUB_SPLIT, auto_hub_cap, team_lanes
-from cusp_autotuned_tpu_torch.kernels.csr import ENTRIES_PER_THREAD
+from cusp_autotuned_tpu_torch.kernels.colsort import GAP_ROWS
+from cusp_autotuned_tpu_torch.kernels.csr import ENTRIES_PER_THREAD, tile_rows, tile_splits
 from cusp_autotuned_tpu_torch.kernels.routed import MAX_TAIL, STAGE_MIN_FILL
 
 # Measured and fitted on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
@@ -83,7 +85,6 @@ def _auto_load_calibration() -> None:
     if _calibration_checked:
         return
     _calibration_checked = True
-    import torch
     if not torch.cuda.is_available():
         return
     from cusp_autotuned_tpu_torch.autotune.calibrate import load
@@ -167,6 +168,15 @@ COLSORT2_BLOCK = 256
 ROUTED_BLOCK, ROUTED_WINDOW = 256, 4096
 
 
+def _csr_blocks(d: np.ndarray, nnz: int, tile: int) -> int:
+    """Blocks of the tiled CSR kernel for rows of d entries (kernels/csr.py:
+    a tile's rows are walked a tile's worth of rows a block)."""
+    if not d.size:
+        return 1
+    tile_row = tile_rows(torch.from_numpy(np.r_[0, np.cumsum(d)]), nnz, tile)
+    return tile_row.shape[0] - 1 + tile_splits(tile_row, d.size, tile)[0].shape[0]
+
+
 def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     """For each rail, one entry a priced plan: (lane-iterations issued, idle
     lanes included; kernel launches; dependent memory round trips of the
@@ -177,11 +187,13 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     dmax = int(d.max()) if d.size else 0
     out: Dict[str, Any] = {}
     # the tiled CSR kernel: a lane an entry (each tile's rows are then
-    # summed from shared memory), and the carry fold for the long rows that
-    # tiles cut, whose chain walks the tiles of the longest row
+    # summed from shared memory, a block for each tile's worth of rows), and
+    # the carry fold for the long rows that tiles cut, whose chain walks the
+    # tiles of the longest row
     tile = CUDA_BLOCK * ENTRIES_PER_THREAD
     tiles = max(1, -(-nnz // tile))
-    out["cuda"] = [(tiles * tile, 1 + (tiles > 1), 4 + -(-dmax // tile),
+    blocks = _csr_blocks(d, nnz, tile)
+    out["cuda"] = [(blocks * tile, 1 + (tiles > 1), 4 + -(-dmax // tile),
                     {"impl": "cuda", "block_size": CUDA_BLOCK})]
     hub = d > HUB_CAP
     out["binned"] = []
@@ -201,8 +213,10 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
                                "block_size": BINNED_BLOCK}))
     # a lane's run loads four entries a round trip; the carry fold adds a
     # row's partials chunk by chunk: a chain as long as the chunks the
-    # longest row spans
-    out["colsort"] = [(int(nnz), 2,
+    # longest row spans; a run of more than GAP_ROWS empty rows adds y's
+    # zero fill
+    empty = np.diff(np.r_[-1, np.flatnonzero(d), d.size]) - 1
+    out["colsort"] = [(int(nnz), 2 + int(empty.max() > GAP_ROWS),
                        2 * -(-COLSORT_VPT // 4) + -(-dmax // (32 * COLSORT_VPT)),
                        {"impl": "colsort", "values_per_thread": COLSORT_VPT,
                         "block_size": COLSORT_BLOCK})]

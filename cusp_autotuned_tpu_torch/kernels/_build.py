@@ -45,10 +45,10 @@ _SIGNATURES = {
     # data, offsets, ndiag, pitch, X_pad, left, row0, Y, band, k, block, stream
     "cusp_dia_band_spmm": ((_vp, _vp, _i32, _i64, _vp, _i64, _i64, _vp, _i32,
                             _i32, _i32, _vp), _TYPED),
-    # indptr, col, val, x, y, m, nnz, tile_row, carry_row, carry_val, ept,
-    # block, stream
+    # indptr, col, val, x, y, m, nnz, tile_row, split_tile, split_row,
+    # nsplit, carry_row, carry_val, block, stream
     "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i64, _vp, _vp, _vp, _i32,
-                       _i32, _vp), _TYPED),
+                       _vp, _vp, _i32, _vp), _TYPED),
     # indptr, col, val, perm, bins (host), nbins, x, y, block, stream
     "cusp_binned_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp),
                          _TYPED),

@@ -11,7 +11,9 @@ warp; each lane adds up its `values_per_thread` consecutive entries in
 registers and one segmented warp scan a chunk joins the rows that cross
 lanes; rows cut by a chunk boundary leave as carries (planned once with
 the plan) that a second small kernel folds into y in order.  The kernel
-writes every row of y, empty rows as 0, so y needs no zero fill.  Long
+writes every row of y, empty rows as 0, so y needs no zero fill, except
+for a matrix with a run of more than `GAP_ROWS` empty rows: one lane
+writes a run, so the plan of such a matrix zero-fills y first.  Long
 rows are long segments, so there is no separate hub pass.  The SpMM
 sites, `_main_spmm_kernel` (:885) and `_hub_spmm_kernel` (:932) from
 :426, :500, :751 and :831, become
@@ -33,6 +35,9 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
 )
 
 VALUES_PER_THREAD = 4              # default: chunks of 128 entries
+# the longest run of empty rows the chunk kernel writes itself (kGapRows in
+# csrc/coo_spmv.cu); a plan with a longer run zero-fills y before the launch
+GAP_ROWS = 32
 
 
 def coo_spmv_plain(row, col, val, x, num_rows):
@@ -64,13 +69,15 @@ def _check(row, col, val, x, shape, rank):
         raise InvalidInputException("COO kernel needs contiguous tensors")
 
 
-def coo_spmv(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK):
+def coo_spmv(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK,
+             zero_fill=False):
     """y = A @ x through build_colsort's plan `a`: row-sorted entries (row,
     col, val) with no padding, and the carry slots (carry_row, carry_val) of
     its chunks of 32 * `vpt` entries.  On CPU tensors this is the plain
     version; on CUDA tensors it launches the chunk kernel and the carry fold
     (a 2-D x goes to coo_spmm), and raises on what the kernels do not
-    take."""
+    take.  `zero_fill` (the plan's, set where a run of more than GAP_ROWS
+    rows holds no entry) zero-fills y before the launch."""
     row, col, val = a["row"], a["col"], a["val"]
     if x.dim() == 2:
         return coo_spmm(row, col, val, x, shape, vpt, block)
@@ -93,7 +100,8 @@ def coo_spmv(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK):
             f"chunks of {32 * vpt} entries for x of {x.dtype} on {x.device}")
     if not (nnz and m):
         return torch.zeros(m, dtype=x.dtype, device=x.device)
-    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    y = (torch.zeros if zero_fill else torch.empty)(m, dtype=x.dtype,
+                                                    device=x.device)
     _build.launch("cusp_coo_spmv", val.dtype, x.device, row, col, val, nnz, x, y,
                   m, carry_row, carry_val, vpt, block)
     coo_spmv.launches += 1
@@ -135,7 +143,8 @@ def build_colsort(A, config):
     dtype that `value_dtype` names, `values_per_thread` entries per lane per
     chunk and `block_size` threads per block, and the chunks' carry slots
     (two a chunk, in the accumulation dtype), planned here once so that a
-    call allocates nothing but y.  An empty matrix raises
+    call allocates nothing but y, and whether y is zero-filled (a run of
+    more than GAP_ROWS empty rows).  An empty matrix raises
     FormatConversionException (the default path serves it)."""
     if A.dtype.is_complex:
         raise NotImplementedException("COO kernel supports real dtypes only")
@@ -161,13 +170,23 @@ def build_colsort(A, config):
               "carry_val": torch.empty(2 * chunks, dtype=_build.accumulation(store),
                                        device=A.device)}
     shape = A.shape
+    zero_fill = longest_gap(arrays["row"], shape[0]) > GAP_ROWS
 
     def apply(arrays, x):
-        return coo_spmv(arrays, x, shape, vpt, block)
+        return coo_spmv(arrays, x, shape, vpt, block, zero_fill)
 
     def fn(x):
         return apply(arrays, x)
 
     fn.planned_arrays = arrays
     fn.apply = apply
+    fn.plan_stats = {"impl": "colsort", "zero_fill": zero_fill}
     return fn
+
+
+def longest_gap(row, m):
+    """The longest run of rows that hold no entry, for row-sorted row
+    indices of an m-row matrix (the rows before the first entry and after
+    the last included).  One reduction on row's device."""
+    edges = torch.cat([row.new_tensor([-1]), row, row.new_tensor([m])])
+    return int((edges[1:] - edges[:-1]).max()) - 1

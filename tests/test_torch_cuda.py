@@ -275,6 +275,10 @@ REDESIGN_PATTERNS = {
     "m = 1": [600],
     "3 x 1000": [700, 1000, 300],
     "no entries": [0, 0, 0, 0],
+    "runs of more than GAP_ROWS empty rows at the start, middle and end":
+        [0] * 40 + [3] + [0] * 33 + [2, 5] + [0] * 100 + [1, 0, 4] + [0] * 35,
+    "runs of empty rows longer than a tile":
+        [0] * 700 + [5, 300] + [0] * 600 + [3] + [0] * 1000 + [40] * 9 + [0] * 257,
 }
 STORES = {"f32": (torch.float32, {}), "bf16": (torch.float32,
                                                {"value_dtype": "bfloat16"}),
@@ -350,6 +354,31 @@ def test_coo_kernel_on_patterns_on_card(cuda_device, name, store, vpt):
     yp = coo_spmv_plain(a["row"], a["col"], a["val"], x, A.num_rows)
     torch.testing.assert_close(y, yp, **_store_tol(store))
     assert torch.equal(fn(x), y)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "colsort"])
+def test_redesigned_kernels_after_a_million_empty_rows_on_card(cuda_device, impl):
+    """1M rows whose entries all lie in the last 4,096: the CSR plan cuts
+    its first tile's rows over many blocks, a tile's worth of rows each,
+    and the COO plan zero-fills y (its kernel writes runs of at most
+    GAP_ROWS rows); both against the plain version."""
+    m, rows = 1_000_000, 4096
+    rng = np.random.RandomState(8)
+    indptr = np.r_[np.zeros(m - rows + 1, np.int64), 8 * np.arange(1, rows + 1)]
+    S = sp.csr_matrix((rng.uniform(-1, 1, 8 * rows), rng.randint(0, m, 8 * rows),
+                       indptr), shape=(m, m))
+    A = from_scipy(S, "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_spmv(A, {"impl": impl})
+    if impl == "colsort":
+        assert fn.plan_stats["zero_fill"]
+    else:
+        assert fn.plan_stats["blocks"] > fn.plan_stats["tiles"] + 900
+    x = _x(m, cuda_device)
+    a = fn.planned_arrays
+    y = fn(x)
+    yp = csr_spmv_plain(a["row"], a["col"], a["val"], x, m)
+    torch.testing.assert_close(y, yp, **TOL["csr"])
+    assert not y[:m - rows].any()
 
 
 @pytest.mark.parametrize("impl", ["cuda", "colsort"])

@@ -16,9 +16,11 @@ import scipy.sparse as sp
 import torch
 
 from cusp_autotuned_tpu_torch.backend.reference import from_scipy
-from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort, coo_spmv_plain
+from cusp_autotuned_tpu_torch.kernels.colsort import (
+    GAP_ROWS, build_colsort, coo_spmv_plain, longest_gap,
+)
 from cusp_autotuned_tpu_torch.kernels.csr import (
-    ENTRIES_PER_THREAD, build_csr, csr_spmv_plain,
+    ENTRIES_PER_THREAD, build_csr, csr_spmv_plain, tile_splits,
 )
 
 from tests.torch_parity import one_thread  # noqa: F401
@@ -39,6 +41,10 @@ PATTERNS = {
     "m = 1": [600],
     "3 x 1000": [700, 1000, 300],
     "no entries": [0, 0, 0, 0],
+    "runs of more than GAP_ROWS empty rows at the start, middle and end":
+        [0] * 40 + [3] + [0] * 33 + [2, 5] + [0] * 100 + [1, 0, 4] + [0] * 35,
+    "runs of empty rows longer than a tile":
+        [0] * 700 + [5, 300] + [0] * 600 + [3] + [0] * 1000 + [40] * 9 + [0] * 257,
 }
 
 
@@ -59,13 +65,16 @@ def _x(n, seed=1):
     return np.random.RandomState(seed).randn(n)
 
 
-def walk_csr(indptr, col, val, x, m, tile_row, tile):
-    """csrc/csr_spmv.cu in numpy: the tile kernel's rows and carry slots,
-    then the fold, each sum in the kernel's order.  A short row (at most
+def walk_csr(indptr, col, val, x, m, tile_row, tile, split_tile, split_row):
+    """csrc/csr_spmv.cu in numpy: the tile kernel's blocks (block t the
+    first `tile` rows of tile t, then the splits, each `tile` rows from its
+    first), the carry slots (set by a tile's first block), then the fold,
+    each sum in the kernel's order.  A short row (at most
     SHORT entries) is summed whole by the tile where it starts; a longer
-    row by segments, a carry for each cut one.  Asserts that every row is
-    written exactly once and that every carry slot the tiles name gets its
-    partial."""
+    row by segments, a carry for each cut one.  Asserts that the blocks
+    walk each tile's rows once, in order, at most a tile's count of rows
+    each, that every row is written exactly once and that every carry slot
+    the tiles name gets its partial."""
     nnz, tiles = int(indptr[-1]), len(tile_row) - 1
     prod = val * x[col]
     y, writes = np.full(m, np.nan), np.zeros(m, np.int64)
@@ -78,16 +87,25 @@ def walk_csr(indptr, col, val, x, m, tile_row, tile):
             acc += prod[k]
         return acc
 
-    for t in range(tiles):
+    walked = {t: [] for t in range(tiles)}
+    for blk in range(tiles + len(split_tile)):
+        first = blk < tiles
+        t = blk if first else split_tile[blk - tiles]
         t0, t1 = t * tile, (t + 1) * tile
         r_lo = 0 if t == 0 else tile_row[t]
         r_next = tile_row[t + 1]
-        lo_a, lo_b = indptr[r_lo], indptr[r_lo + 1]
-        carry_row[2 * t] = r_lo if t > 0 and lo_a < t0 and lo_b - lo_a > SHORT else -1
-        start, stop = (indptr[r_next], indptr[r_next + 1]) if r_next < m else (0, 0)
-        carry_row[2 * t + 1] = (r_next if t1 < nnz and t0 <= start < t1
-                                and stop - start > SHORT else -1)
-        for r in range(r_lo, min(r_next, m - 1) + 1):
+        w_lo = r_lo if first else split_row[blk - tiles]
+        w_hi = min(w_lo + tile - 1, r_next, m - 1)
+        assert w_hi >= w_lo
+        walked[t] += range(w_lo, w_hi + 1)
+        if first:
+            lo_a, lo_b = indptr[r_lo], indptr[r_lo + 1]
+            carry_row[2 * t] = (r_lo if t > 0 and lo_a < t0 and lo_b - lo_a > SHORT
+                                else -1)
+            start, stop = (indptr[r_next], indptr[r_next + 1]) if r_next < m else (0, 0)
+            carry_row[2 * t + 1] = (r_next if t1 < nnz and t0 <= start < t1
+                                    and stop - start > SHORT else -1)
+        for r in range(w_lo, w_hi + 1):
             a, b = indptr[r], indptr[r + 1]
             if b - a <= SHORT:
                 if a >= t0 and (a < t1 or a == b):
@@ -104,6 +122,9 @@ def walk_csr(indptr, col, val, x, m, tile_row, tile):
                 slot = 2 * t if a < t0 else 2 * t + 1
                 assert carry_row[slot] == r
                 carry_val[slot] = serial(s, e)
+    for t in range(tiles):
+        r_lo = 0 if t == 0 else tile_row[t]
+        assert sorted(walked[t]) == list(range(r_lo, min(tile_row[t + 1], m - 1) + 1))
     assert not np.isnan(carry_val[carry_row >= 0]).any()
     for t in range(tiles):
         r = carry_row[2 * t + 1]
@@ -119,10 +140,12 @@ def walk_csr(indptr, col, val, x, m, tile_row, tile):
     return y
 
 
-def walk_coo(row, col, val, x, m, vpt):
+def walk_coo(row, col, val, x, m, vpt, zero_fill):
     """csrc/coo_spmv.cu in numpy, lane by lane: each lane's run, the
     segmented scan of the lanes' tails, the chunk's writes and carries,
-    then the fold.  Asserts that every row is written exactly once."""
+    then the fold.  A run of empty rows longer than GAP_ROWS is left to the
+    plan's zero fill.  Asserts that every row is written exactly once, the
+    fill counted as a write."""
     nnz = len(row)
     chunks = -(-nnz // (32 * vpt))
     prod = val * x[col]
@@ -135,6 +158,8 @@ def walk_coo(row, col, val, x, m, vpt):
         writes[r] += 1
 
     def zero(lo, hi):
+        if hi - lo > GAP_ROWS:
+            assert zero_fill, (lo, hi)
         for z in range(lo, hi):
             put(z, 0.0)
 
@@ -249,7 +274,7 @@ def test_csr_tile_walk_matches_plain_and_scipy(name):
     a = {k: v.numpy() for k, v in fn.planned_arrays.items()}
     x = _x(S.shape[1])
     y = walk_csr(a["indptr"], a["col"], a["val"], x, S.shape[0], a["tile_row"],
-                 fn.plan_stats["tile"])
+                 fn.plan_stats["tile"], a["split_tile"], a["split_row"])
     xt = torch.from_numpy(x)
     plain = csr_spmv_plain(fn.planned_arrays["row"], fn.planned_arrays["col"],
                            fn.planned_arrays["val"], xt, S.shape[0]).numpy()
@@ -275,7 +300,8 @@ def test_short_rows_sum_alike_on_any_tiling(r0):
                        {"block_size": BLOCK})
         a = {k: v.numpy() for k, v in fn.planned_arrays.items()}
         walks.append(walk_csr(a["indptr"], a["col"], a["val"], x, part.shape[0],
-                              a["tile_row"], fn.plan_stats["tile"]))
+                              a["tile_row"], fn.plan_stats["tile"], a["split_tile"],
+                              a["split_row"]))
     short = lengths[r0:] <= SHORT
     assert short.sum() > 100 and S.indptr[r0] % TILE   # the tiles fall elsewhere
     np.testing.assert_array_equal(walks[1][short], walks[0][r0:][short])
@@ -290,7 +316,8 @@ def test_coo_chunk_walk_matches_plain_and_scipy(name, vpt):
                        {"values_per_thread": vpt})
     a = fn.planned_arrays
     x = _x(S.shape[1])
-    y = walk_coo(*(a[k].numpy() for k in ("row", "col", "val")), x, S.shape[0], vpt)
+    y = walk_coo(*(a[k].numpy() for k in ("row", "col", "val")), x, S.shape[0], vpt,
+                 fn.plan_stats["zero_fill"])
     plain = coo_spmv_plain(a["row"], a["col"], a["val"], torch.from_numpy(x),
                            S.shape[0]).numpy()
     np.testing.assert_allclose(y, plain, **TOL)
@@ -309,3 +336,42 @@ def test_colsort_plans_two_carries_a_chunk(vpt, store, acc):
     chunks = -(-S.nnz // (32 * vpt))
     assert a["carry_row"].shape == a["carry_val"].shape == (2 * chunks,)
     assert a["carry_row"].dtype == torch.int32 and a["carry_val"].dtype == acc
+
+
+@pytest.mark.parametrize("where", ["start", "middle", "end"])
+@pytest.mark.parametrize("run", [GAP_ROWS, GAP_ROWS + 1])
+def test_colsort_zero_fills_past_runs_of_gap_rows(where, run):
+    """The kernel writes runs of at most GAP_ROWS empty rows itself; a plan
+    with a longer run zero-fills y, and no other plan does."""
+    lengths = {"start": [0] * run + [3, 1, 2], "middle": [3] + [0] * run + [1, 2],
+               "end": [3, 1, 2] + [0] * run}[where]
+    S = _matrix(lengths, seed=5)
+    fn = build_colsort(from_scipy(S, "csr", dtype=torch.float64, device="cpu"), {})
+    row = fn.planned_arrays["row"]
+    assert longest_gap(row, S.shape[0]) == run
+    assert fn.plan_stats["zero_fill"] == (run > GAP_ROWS)
+
+
+@pytest.mark.parametrize("name", list(PATTERNS))
+def test_tile_splits_cut_each_tiles_rows_into_tiles_worth(name):
+    """Each tile's rows, tile_row[t] (0 for the first) to min(tile_row[t +
+    1], m - 1), cut in order into parts of TILE rows: the first part is
+    block t's, each later one a split (its tile and first row)."""
+    S = _matrix(PATTERNS[name])
+    m = S.shape[0]
+    fn = build_csr(from_scipy(S, "csr", dtype=torch.float64, device="cpu"),
+                   {"block_size": BLOCK})
+    a = fn.planned_arrays
+    tile_row = a["tile_row"].numpy()
+    expect_tile, expect_row = [], []
+    for t in range(len(tile_row) - 1):
+        lo, hi = (0 if t == 0 else tile_row[t]), min(tile_row[t + 1], m - 1)
+        starts = list(range(lo, hi + 1, TILE))[1:]
+        expect_tile += [t] * len(starts)
+        expect_row += starts
+    assert a["split_tile"].dtype == a["split_row"].dtype == torch.int32
+    np.testing.assert_array_equal(a["split_tile"].numpy(), expect_tile)
+    np.testing.assert_array_equal(a["split_row"].numpy(), expect_row)
+    assert fn.plan_stats["blocks"] == len(tile_row) - 1 + len(expect_tile)
+    st, sr = tile_splits(a["tile_row"], m, TILE)
+    assert torch.equal(st, a["split_tile"]) and torch.equal(sr, a["split_row"])
