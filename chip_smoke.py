@@ -103,8 +103,13 @@ Phases:
   colsort2_spmv, routed_spmv
                the colsort2 and routed kernels (with the colsort2 hub pair
                as routed's tail) against their plain versions on the four
-               matrices above and on the JAX package's colsort2 and routed
-               test shapes
+               matrices above, on the JAX package's colsort2 and routed
+               test shapes and on the row walk's edges (rows of 32 and 33
+               entries and of thr and thr + 1, runs of empty rows, LP's
+               2,000 rows of ~1,300 entries, a staged span at x's end), two
+               calls equal bit for bit; then both L2-cold beside cuSPARSE on
+               poisson5pt 1000x1000, the skewed 1M-row matrix and LP, on the
+               phase's plans and the default ones (rows 7 and 8)
   colsort2_spmm, routed_spmm
                the same at k = 16 on the four matrices, and on the JAX
                package's SpMM test shapes of the two rails
@@ -768,9 +773,26 @@ def plain_product(A, X):
     return Y, scale
 
 
+def edge_csr(lengths, n, seed, device, tail_cols=0):
+    """A seeded CSR matrix with the given row lengths and n columns, drawn
+    by index (repeats in a row merged); with tail_cols, every column lies
+    in the last tail_cols of x."""
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(lengths, np.int64)
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    lo = n - tail_cols if tail_cols else 0
+    cols = rng.randint(lo, n, rows.size)
+    S = sp.coo_matrix((rng.uniform(-1.0, 1.0, rows.size), (rows, cols)),
+                      shape=(lengths.size, n))
+    return from_scipy(S.tocsr(), "csr", dtype=torch.float32, device=device)
+
+
 def new_rails_phase(device, triad_gbps, matrices):
     """The colsort2 and routed kernels against their plain versions, SpMV
-    and SpMM; returns each kernel's record on poisson5pt 1000x1000."""
+    and SpMM, then their L2-cold lines; returns each kernel's record on
+    poisson5pt 1000x1000."""
     from cusp_autotuned_tpu_torch import gallery
     from cusp_autotuned_tpu_torch.kernels.colsort2 import (
         build_colsort2, colsort2_spmv_plain)
@@ -802,6 +824,25 @@ def new_rails_phase(device, triad_gbps, matrices):
         ("hub row 3000x3000 hub_cap 32", hub_row_csr(device), {}, {"hub_cap": 32}, 0),
         ("rect 3000x5000", random_csr(3000, 5000, 5e-4, 9, device), {}, {}, 0),
     ]
+    # the row walk's edges (csrc/rail_rows.cuh): rows of 32 and 33 entries
+    # (a lane or a warp) and of thr and thr + 1 (main or hub), runs of
+    # empty rows, LP's rows of ~1,300 entries (a warp each under the default
+    # plans), and a staged span that ends at x's last column
+    edges = edge_csr([16, 17, 32, 33, 64, 65, 5, 0] * 700, 20000, 21, device)
+    gaps = edge_csr([0] * 40 + ([3, 0, 33] + [0] * 100 + [7] * 40 + [0] * 1000)
+                    * 30 + [0] * 70, 5000, 22, device)
+    lp = lp_csr(device)
+    cases += [
+        ("edges 16/17/32/33/64/65, thr 16", edges, {}, {"hub_cap": 64}, 0),
+        ("edges 16/17/32/33/64/65, thr 64", edges,
+         {"vrow_len": 32, "hub_cap": 64}, {"hub_cap": 64}, 0),
+        ("runs of 40 to 1000 empty rows", gaps, {"vrow_len": 32, "hub_cap": 64},
+         {}, 0),
+        ("Williams LP (suite 2.0), default plans", lp, {"vrow_len": 0}, {"window": 0},
+         0),
+        ("staged span at x's end (n 4998)", edge_csr([16] * 4096, 4998, 23, device,
+                                                     tail_cols=300), {}, {}, 0),
+    ]
     cases += [(f"{name} k=16", A, {}, {}, 16) for name, A in big]
     cases += [  # tests/test_pallas.py:743, :756, :925
         ("rect 500x700 k=10", random_csr(500, 700, 0.02, 17, device), {}, {}, 10),
@@ -830,12 +871,15 @@ def new_rails_phase(device, triad_gbps, matrices):
         fc = build_colsort2(A, {**COLSORT2_CONFIG, **c2cfg})
         a, st = fc.planned_arrays, fc.plan_stats
         out[f"colsort2_{kind}"][name] = compare(
-            f"colsort2 {name} (thr {st['thr']}, {st['hub_rows']} hub rows in "
-            f"{st['hub_vrows']} virtual rows)", lambda: fc(X),
+            f"colsort2 {name} (thr {st['thr']}, {st['long_rows']} long rows, "
+            f"{st['hub_rows']} hub rows in {st['hub_vrows']} virtual rows)",
+            lambda: fc(X),
             lambda: colsort2_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"], X,
                                         m, st["vrow_planes"], st["vrow_len"], st["thr"]),
             RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
             per_sample)
+        if k == 0 and not torch.equal(fc(X), fc(X)):
+            raise RuntimeError(f"colsort2_spmv {name}: two calls differ")
         del fc, a
 
         cap, share = routed_hub_cap(A)
@@ -851,12 +895,16 @@ def new_rails_phase(device, triad_gbps, matrices):
         r, st = fr.planned_arrays, fr.plan_stats
         out[f"routed_{kind}"][name] = compare(
             f"routed {name} (hub_cap {st['hub_cap']}, tail {st['tail']}, "
-            f"{st['staged_windows']} + {st['staged_spmm_windows']} staged "
-            f"SpMV + SpMM windows)", lambda: fr(X),
+            f"{st['long_rows']} long rows, {st['staged_spans']} staged spans, "
+            f"{st['staged_spmm_windows']} staged SpMM windows)", lambda: fr(X),
             lambda: routed_spmv_plain(r["indptr"], r["col"], r["val"], r["hub"], X, m,
                                       st["hub_cap"]),
             RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
             per_sample)
+        if k == 0 and not torch.equal(fr(X), fr(X)):
+            raise RuntimeError(f"routed_spmv {name}: two calls differ")
+        if name.startswith("staged span") and not st["staged_spans"]:
+            raise RuntimeError("routed: the span at x's end was not staged")
         del fr, r, scale, library, X
 
     # tests/test_pallas.py:942: both rails' packages refuse routed here
@@ -867,6 +915,26 @@ def new_rails_phase(device, triad_gbps, matrices):
     except FormatConversionException as e:
         log(f"  routed on power-law 3000 rows (tests/test_pallas.py:942): refused, "
             f"{str(e)[:120]}")
+
+    log("rows 7 and 8, L2-cold (benchmarks/spmv_tiles.py's timing): useful "
+        "bytes nnz*(4+4) + (m+1)*4 + (n+m)*4")
+    for name, A in (("poisson5pt 1000x1000 f32", matrices["poisson5pt 1000x1000 f32"]),
+                    ("random 1M rows, skewed", matrices["random 1M rows, skewed"]),
+                    ("Williams LP (suite 2.0)", lp)):
+        x = seeded_x(A.num_cols, 4, device)
+        nbytes = A.nnz * 8 + (2 * A.num_rows + 1 + A.num_cols) * 4
+        S = sparse_csr(A)
+        for label, build, cfg in (("colsort2", build_colsort2, COLSORT2_CONFIG),
+                                  ("colsort2", build_colsort2, {}),
+                                  ("routed", build_routed, ROUTED_CONFIG),
+                                  ("routed", build_routed, {})):
+            fn = build(A, cfg)
+            row = 7 if label == "colsort2" else 8
+            cold_line(f"row {row}: {label} {cfg or 'default'} {name}", fn, x,
+                      nbytes, S)
+            S = None                  # cuSPARSE once a matrix
+            del fn
+        del x
     return {"colsort2_spmv": out["colsort2_spmv"]["poisson5pt 1000x1000 f32"],
             "routed_spmv": out["routed_spmv"]["poisson5pt 1000x1000 f32"],
             "colsort2_spmm": out["colsort2_spmm"]["poisson5pt 1000x1000 f32 k=16"],
@@ -1964,8 +2032,7 @@ def probes_phase(device, triad_gbps):
             for mode in routed_probe.MODES:
                 fn, info = routed_probe.build_probe(R, config, mode)
                 a = fn.planned_arrays
-                args = (R.shape, info["hub_cap"], info["window"], mode,
-                        config["block_size"])
+                args = (R.shape, info["hub_cap"], mode, config["block_size"])
                 plain = routed_probe.routed_probe_plain(a, x, *args)
                 scale = routed_probe.routed_probe_plain(
                     {**a, "val": a["val"].abs()}, x.abs(), *args)
@@ -1978,7 +2045,7 @@ def probes_phase(device, triad_gbps):
         if name == "Economics":
             fn, info = routed_probe.build_probe(R, routed_probe.CONFIGS[0], "full")
             a = fn.planned_arrays
-            args = (R.shape, info["hub_cap"], info["window"], "full",
+            args = (R.shape, info["hub_cap"], "full",
                     routed_probe.CONFIGS[0]["block_size"])
             records["routed_probe"] = compare(
                 "routed_probe full (Economics, the default plan)", lambda: fn(x),

@@ -16,16 +16,19 @@ this model prices each launch plan of the port's impls on one card
     L1/L2, one 32-byte sector for each distinct (32-row group, 8-column
     group) pair of the pattern, at gather_scale x the index_select probe's
     price an element, or at the take probe's price (tile_take_ns / 16384)
-    for the entries whose x window the routed plan stages in shared memory;
+    for the entries whose x the routed plan stages in shared memory (their
+    spans' bytes then count as streamed);
     and the lane-iterations it issues, idle lanes included (a lane an
     entry for the csr `cuda` kernel's tiles, length-binned teams for
-    binned, K teams a row for colsort2, a thread a row for routed, a lane
-    an entry for colsort), at lane_ns each;
+    binned, rail_rows.cuh's walk for colsort2 and routed: a warp a chunk of
+    32 short-row entries of its 32 rows and a warp a chunk of a long row; a
+    lane an entry for colsort), at lane_ns each;
   - the latency of its longest thread's chain of dependent round trips
-    (a thread a row walks routed's longest row; the DIA kernel walks every
-    diagonal for each row; the carry folds of the csr `cuda` kernel and of
-    colsort walk the tiles or chunks of the longest row), at serial_us
-    (serial_dia_us for the DIA kernel) each.
+    (colsort2's and routed's warps walk a group's chunks or a long row's
+    rounds of four; the DIA kernel walks every diagonal for each row; the
+    carry folds of the csr `cuda` kernel and of colsort walk the tiles or
+    chunks of the longest row), at serial_us (serial_dia_us for the DIA
+    kernel) each.
 
 The constants below were fitted on an NVIDIA H100 80GB HBM3 at a 700 W
 power limit by `python -m cusp_autotuned_tpu_torch.autotune.fit_cost_model`
@@ -43,16 +46,20 @@ import numpy as np
 import torch
 
 from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE, HUB_CAP
-from cusp_autotuned_tpu_torch.kernels.colsort2 import HUB_SPLIT, auto_hub_cap, team_lanes
+from cusp_autotuned_tpu_torch.kernels.colsort2 import HUB_SPLIT, SHORT_ROW, auto_hub_cap
 from cusp_autotuned_tpu_torch.kernels.colsort import GAP_ROWS
 from cusp_autotuned_tpu_torch.kernels.csr import ENTRIES_PER_THREAD, tile_rows, tile_splits
-from cusp_autotuned_tpu_torch.kernels.routed import MAX_TAIL, STAGE_MIN_FILL
+from cusp_autotuned_tpu_torch.kernels.routed import MAX_TAIL, plan_spans
 
 # Measured and fitted on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
 # fit_cost_model.py (368 plans on 31 matrices, with the csr `cuda` kernel
 # priced as nnz-balanced tiles and colsort as two launches; model /
-# measured median 1.050, quartiles 0.860 and 1.246).  calibrate() measures
-# the first four on the card in use.
+# measured median 1.050, quartiles 0.860 and 1.246).  A refit with colsort2
+# and routed priced as rail_rows.cuh's walk (median 1.012, quartiles 0.911
+# and 1.127) lowered lane_ns five-fold and tipped the near-tie between the
+# DIA kernel and binned on small stencil levels (poisson5pt 128², 2.99
+# against 2.88 us) to binned, so these constants stay.  calibrate()
+# measures the first four on the card in use.
 DEVICE_MODEL: Dict[str, float] = dict(
     stream_gbps=3063.20,      # stream triad, GB/s
     gather_ns=0.010401,       # index_select, ns an element (4M elements)
@@ -75,6 +82,7 @@ DEVICE_MODEL: Dict[str, float] = dict(
 RAILS = ("cuda", "binned", "colsort", "colsort2", "routed")
 SECTOR_ROWS, SECTOR_COLS = 32, 8      # a warp's rows; a 32-byte sector of f32 x
 TILE = 128 * 128                      # the take probe's gathers a tile pass
+AHEAD = 4                             # chunks of 32 a long row's warp loads ahead
 _calibration_checked = False
 
 
@@ -177,6 +185,23 @@ def _csr_blocks(d: np.ndarray, nnz: int, tile: int) -> int:
     return tile_row.shape[0] - 1 + tile_splits(tile_row, d.size, tile)[0].shape[0]
 
 
+def _rail_rows(d: np.ndarray, thr: int) -> Tuple[int, int]:
+    """(lane-iterations, chain) of rail_rows.cuh's walk of the rows of d
+    entries that are at most thr long: a warp takes each 32 rows, one
+    iteration to set up and one a chunk of 32 of their short rows' entries;
+    a warp takes each longer row, one iteration a chunk of 32; the chain is
+    two round trips (the column, then x) a chunk of the busiest group or a
+    round of AHEAD chunks of the longest long row."""
+    short = np.where(d <= min(SHORT_ROW, thr), d, 0)
+    groups = np.add.reduceat(short, np.arange(0, d.size, 32)) if d.size else short
+    chunks = -(-groups // 32)
+    long = d[(d > SHORT_ROW) & (d <= thr)]
+    slots = 32 * int((1 + chunks).sum() + (-(-long // 32)).sum())
+    chain = 2 * max(int(chunks.max(initial=1)),
+                    int((-(-long // (32 * AHEAD))).max(initial=0)))
+    return slots, chain
+
+
 def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     """For each rail, one entry a priced plan: (lane-iterations issued, idle
     lanes included; kernel launches; dependent memory round trips of the
@@ -223,25 +248,23 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     cap = auto_hub_cap(nnz, m)
     hub_iters = 2 * (HUB_SPLIT // 32)
     hub_slots = 32 * _steps(d, 32) + 32 * _steps(d, HUB_SPLIT)
+    # colsort2 and routed: rail_rows.cuh's walk of the rows up to the
+    # threshold (planes change no lane's work), the hub pair above it
     out["colsort2"] = []
     for K in VROW_PLANES:
         for V in VROW_LENS:
-            T = team_lanes(V)
-            in_hub = d > min(cap, K * V)
-            main = _steps(np.minimum(d[~in_hub], V), T)
+            thr = min(cap, K * (V or -(-cap // K)))
+            in_hub = d > thr
+            slots, chain = _rail_rows(d, thr)
             out["colsort2"].append((
-                _block_slots(main, COLSORT2_BLOCK // (K * T), COLSORT2_BLOCK)
-                + int(hub_slots[in_hub].sum()),
-                1 + 2 * bool(in_hub.any()),
-                max(2 * int(main.max(initial=1)), hub_iters if in_hub.any() else 0),
+                slots + int(hub_slots[in_hub].sum()), 1 + 2 * bool(in_hub.any()),
+                max(chain, hub_iters if in_hub.any() else 0),
                 {"impl": "colsort2", "vrow_planes": K, "vrow_len": V,
                  "block_size": COLSORT2_BLOCK}))
     tail = d > cap
-    rows = np.where(tail, 0, d)
-    out["routed"] = [(_block_slots(rows, ROUTED_BLOCK, ROUTED_BLOCK)
-                      + int(hub_slots[tail].sum()),
-                      1 + 2 * bool(tail.any()),
-                      max(2 * int(rows.max(initial=1)), hub_iters if tail.any() else 0),
+    slots, chain = _rail_rows(d, cap)
+    out["routed"] = [(slots + int(hub_slots[tail].sum()), 1 + 2 * bool(tail.any()),
+                      max(chain, hub_iters if tail.any() else 0),
                       {"impl": "routed", "window": ROUTED_WINDOW,
                        "block_size": ROUTED_BLOCK})]
     out["routed_tail"] = float(d[tail].sum()) / max(nnz, 1)
@@ -249,21 +272,22 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
 
 
 def _gathers(row, col, m, n) -> Tuple[int, int, int]:
-    """(x sectors the pattern touches, entries and windows that the routed
-    plan stages in shared memory)."""
+    """(x sectors the pattern touches, entries whose x the routed plan
+    stages in shared memory, staged columns over all row blocks), the plan
+    taken for f32 x at ROUTED_BLOCK rows a block and ROUTED_WINDOW."""
     r = row.astype(np.int64)
     c = col.astype(np.int64)
     nsec = -(-n // SECTOR_COLS)
     sectors = int(np.unique((r // SECTOR_ROWS) * nsec + c // SECTOR_COLS).size)
-    nw = max(1, -(-n // ROUTED_WINDOW))
-    nrb = -(-m // ROUTED_BLOCK)
-    key = (r // ROUTED_BLOCK) * nw + c // ROUTED_WINDOW
-    if nrb * nw <= 4 * key.size + (1 << 20):
-        counts = np.bincount(key, minlength=nrb * nw)
-    else:
-        counts = np.unique(key, return_counts=True)[1]
-    staged = counts >= STAGE_MIN_FILL * ROUTED_WINDOW
-    return sectors, int(counts[staged].sum()), int(staged.sum())
+    lengths = np.bincount(r, minlength=m)
+    cap = auto_hub_cap(r.size, m)
+    short = (lengths <= min(SHORT_ROW, cap))[r]
+    span_lo, span_len = plan_spans(r[short], c[short], m, n, ROUTED_BLOCK,
+                                   ROUTED_WINDOW, 4, r.size)
+    rb = r[short] // ROUTED_BLOCK
+    d = c[short] - span_lo[rb]
+    staged = int(np.count_nonzero((d >= 0) & (d < span_len[rb])))
+    return sectors, staged, int(span_len.sum())
 
 
 def features(A) -> Dict[str, Any]:
@@ -272,20 +296,20 @@ def features(A) -> Dict[str, Any]:
         row, col, (m, n) = _host_triplets(A)
         nnz = int(row.size)
         out = _rails(np.bincount(row, minlength=m), nnz, m)
-        out["sectors"], out["staged"], out["staged_windows"] = (
+        out["sectors"], out["staged"], out["staged_cols"] = (
             _gathers(row, col, m, n) if nnz else (0, 0, 0))
         return out
     return _cached(A, "features", compute)
 
 
-def _rail_bytes(impl, m, n, nnz, v, staged_windows=0) -> float:
+def _rail_bytes(impl, m, n, nnz, v, staged_cols=0) -> float:
     base = nnz * (v + 4) + 4 * (m + 1) + (m + n) * v
     if impl == "binned":
         return base + 4 * m                        # the row permutation
     if impl == "colsort":
         return nnz * (v + 8) + (m + n) * v         # row ids
     if impl == "routed":
-        return base + staged_windows * ROUTED_WINDOW * v  # staged from L2
+        return base + staged_cols * v              # the spans, copied from L2
     return base
 
 
@@ -311,14 +335,14 @@ def rail_plans(st, f, v, dev):
     plans = []
     for impl in RAILS:
         for slots, kernels, chain, cfg in f[impl]:
-            sectors, windows, extra = f["sectors"], 0, 0.0
+            sectors, cols, extra = f["sectors"], 0, 0.0
             if impl == "routed" and f["staged"]:
                 # staged entries read x from shared memory; their sectors go
                 sectors = sectors * (1.0 - f["staged"] / max(nnz, 1))
                 extra = f["staged"] * dev["tile_take_ns"] / TILE * 1e-3
-                windows = f["staged_windows"]
+                cols = f["staged_cols"]
             plans.append((cfg, dict(kind=impl, kernels=kernels,
-                                    bytes_=_rail_bytes(impl, m, n, nnz, v, windows),
+                                    bytes_=_rail_bytes(impl, m, n, nnz, v, cols),
                                     sectors=sectors, slots=slots, chain=chain,
                                     extra_us=extra)))
     return plans

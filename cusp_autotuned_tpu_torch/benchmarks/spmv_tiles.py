@@ -1,15 +1,20 @@
-"""Time the CSR kernel (the `cuda` impl) and the COO kernel (`colsort`)
-against cuSPARSE on the card, with every working set out of L2.
+"""Time the CSR kernel (the `cuda` impl), the COO kernel (`colsort`) and
+the colsort2 and routed kernels against cuSPARSE on the card, with every
+working set out of L2.
 
-    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles [--sweep]
+    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles [--sweep] [--rails]
 
-The matrices are those of `PERF.md` rows 4, 6 and 12: poisson5pt
+The matrices are those of `PERF.md` rows 4, 6, 7, 8 and 12: poisson5pt
 1000x1000 f32, the skewed 1M-row matrix (Pareto row lengths of 1 to 4096,
-seed 2), its first band of four (250,000 rows, the mesh path's COO band)
-and LP of williams_suite(2.0) (2,000 rows of ~1,300 entries); and a 1M-row
-matrix whose entries all lie in its last 4,096 rows, 8 a row, so that
-999,904 empty rows lead.  For each plan it prints the device ms (a CUDA
-graph's replay) and the ms a call back to back, both from
+seed 2), its first band of four (250,000 rows, the mesh path's COO band),
+Economics and LP of williams_suite(2.0) (LP: 2,000 rows of ~1,300
+entries); and a 1M-row matrix whose entries all lie in its last 4,096
+rows, 8 a row, so that 999,904 empty rows lead.  The colsort2 and routed
+plans (rows 7 and 8) are timed on poisson, the skewed 1M, Economics and
+LP: chip_smoke.py's plans (two planes of 8 entries; 4096-column windows)
+and the defaults; `--rails` times those rows alone.  For each plan it
+prints the device ms (a CUDA graph's replay) and the ms a call back to
+back, both from
 `harness.time_cold`, the CUDA kernels one call launches (torch.profiler,
 fills included), the bound (the useful bytes over 3.35 TB/s) and
 cuSPARSE's two times on the same input (`torch.sparse_csr_tensor(...) @
@@ -18,7 +23,7 @@ x`, a yardstick the port never calls).
 The default runs the shipped plans (block 256; values_per_thread 4 for
 COO).  `--sweep` times the CSR kernel at blocks of 128, 256 and 512, and
 the COO kernel at values_per_thread 4, 8 and 16 and blocks of 256 and 512.
-The script uses only build_csr, build_colsort and the harness, so run as a
+The script uses only the rails' plan builders and the harness, so run as a
 file it times an older tree of the package as well (put that tree first on
 PYTHONPATH).  The last line is a JSON record of every row.  Needs one CUDA
 card.  chip_smoke.py takes its skewed matrix and its L2-cold lines from
@@ -37,11 +42,23 @@ from torch.profiler import ProfilerActivity, profile
 
 from cusp_autotuned_tpu_torch.benchmarks import harness
 from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort
+from cusp_autotuned_tpu_torch.kernels.colsort2 import build_colsort2
 from cusp_autotuned_tpu_torch.kernels.csr import build_csr
+from cusp_autotuned_tpu_torch.kernels.routed import build_routed
+from cusp_autotuned_tpu_torch.utils.exceptions import FormatConversionException
 
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM data sheet, 700 W
 BANDS = 4                           # the mesh path's bands of the skewed matrix
 SAMPLES, PER_SAMPLE = 15, 20
+BUILDERS = {"cuda": build_csr, "colsort": build_colsort,
+            "colsort2": build_colsort2, "routed": build_routed}
+# the matrices each impl is timed on
+RAIL_MATRICES = ("poisson5pt 1000x1000", "skewed 1M", "Economics", "LP")
+ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
+               "1M rows, the last 4096 full"),
+      "colsort": ("poisson5pt 1000x1000", "skewed 1M", f"skewed 1M band 0 of {BANDS}",
+                  "1M rows, the last 4096 full"),
+      "colsort2": RAIL_MATRICES, "routed": RAIL_MATRICES}
 
 
 def skewed(n, seed, device, rows=None):
@@ -81,8 +98,8 @@ def matrices(device):
                                                      device=device)
     yield "skewed 1M", skewed(n, 2, device)
     yield f"skewed 1M band 0 of {BANDS}", skewed(n, 2, device, -(-n // BANDS))
-    S = gallery.williams_suite(2.0, names=("LP",))["LP"]
-    yield "LP", from_scipy(S, "csr", dtype=torch.float32, device=device)
+    for name, S in gallery.williams_suite(2.0, names=("Economics", "LP")).items():
+        yield name, from_scipy(S, "csr", dtype=torch.float32, device=device)
     yield "1M rows, the last 4096 full", leading_gap(n, 4096, 8, 3, device)
 
 
@@ -118,14 +135,20 @@ def library_cold(S, x, nbytes, samples=SAMPLES):
     return device_s * 1e3, call_s * 1e3
 
 
-def plans(sweep):
+def plans(sweep, rails_only=False):
     """(label, impl, config) of each timed plan."""
-    for block in ((128, 256, 512) if sweep else (256,)):
-        yield f"csr block={block}", "cuda", {"block_size": block}
-    for vpt in ((4, 8, 16) if sweep else (4,)):
-        for block in ((256, 512) if sweep else (256,)):
-            yield (f"coo vpt={vpt} block={block}", "colsort",
-                   {"values_per_thread": vpt, "block_size": block})
+    if not rails_only:
+        for block in ((128, 256, 512) if sweep else (256,)):
+            yield f"csr block={block}", "cuda", {"block_size": block}
+        for vpt in ((4, 8, 16) if sweep else (4,)):
+            for block in ((256, 512) if sweep else (256,)):
+                yield (f"coo vpt={vpt} block={block}", "colsort",
+                       {"values_per_thread": vpt, "block_size": block})
+    yield "colsort2 K=2 V=8", "colsort2", {"vrow_planes": 2, "vrow_len": 8,
+                                           "block_size": 256}
+    yield "colsort2 default", "colsort2", {}
+    yield "routed window=4096", "routed", {"window": 4096, "block_size": 256}
+    yield "routed default", "routed", {}
 
 
 def main(argv=None):
@@ -137,9 +160,12 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"spmv_tiles: {card}; torch {torch.__version__}", flush=True)
-    sweep = "--sweep" in argv
+    sweep, rails_only = "--sweep" in argv, "--rails" in argv
+    timed = list(plans(sweep, rails_only))
     rows = []
     for name, A in matrices(device):
+        if not any(name in ON[impl] for _, impl, _ in timed):
+            continue
         m, n, nnz = A.num_rows, A.num_cols, A.nnz
         x = torch.from_numpy(np.random.RandomState(4).randn(n).astype(np.float32)
                              ).to(device)
@@ -153,13 +179,15 @@ def main(argv=None):
         rows.append({"matrix": name, "plan": "cusparse", "device_ms": lib[0],
                      "call_ms": lib[1]})
         ref = None
-        for label, impl, cfg in plans(sweep):
-            if impl == "colsort" and name == "LP":
-                continue                      # rows 6 and 12 only
-            if impl == "cuda" and name.startswith("skewed 1M band"):
-                continue                      # row 12 is the COO band
-            fn = (build_csr if impl == "cuda" else build_colsort)(A, cfg)
-            nbytes = csr_bytes if impl == "cuda" else coo_bytes
+        for label, impl, cfg in timed:
+            if name not in ON[impl]:
+                continue
+            try:
+                fn = BUILDERS[impl](A, cfg)
+            except FormatConversionException as e:
+                print(f"  {label:22s} refused: {str(e)[:100]}", flush=True)
+                continue
+            nbytes = coo_bytes if impl == "colsort" else csr_bytes
             y = fn(x)
             if ref is None:
                 ref = (S @ x).double()

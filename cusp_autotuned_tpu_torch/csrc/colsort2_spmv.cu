@@ -11,72 +11,49 @@
 // rows of at most 128 entries, folded by a scatter-add.  Hopper gathers
 // natively, so what carries over is the idea, not the slot layout:
 //
-//   * a row of at most thr = min(hub_cap, K * V) entries is cut into K
-//     virtual rows of at most V entries, plane k holding entries
-//     [k V, (k + 1) V) of the row.  A team of T lanes (the fewest, a power
-//     of two up to 32, that leave each lane at most 4 entries) sums one
-//     virtual row and meets in a shuffle reduction of width T.  The K teams
-//     of a row sit side by side in one block and put their sums in shared
-//     memory; the plane-0 lane folds them in plane order 0..K-1, the
-//     counterpart of the JAX reshape(K, m).sum(0).  Every team gets at most
-//     V entries: there are no length bins (the binned rail's) and no block
-//     per long row;
+//   * a row of at most thr = min(hub_cap, K * V) entries is a main row,
+//     cut into planes of V entries (plane k: entries [k V, (k + 1) V)),
+//     each summed on its own and the plane sums added in order 0..K-1;
+//   * the main rows are walked by rail_rows.cuh: a lane a row of at most
+//     32 entries, the warp's lanes loading the rows' entries together, and
+//     a warp for each longer main row (the plan lists them).  The first
+//     version gave each row K teams of T lanes with T sized from V, so a
+//     5-entry row of the plan K = 2, V = 8 left plane 1's team idle, and at
+//     V = 32 eleven of sixteen lanes; each block also met at a barrier and
+//     folded the planes through shared memory.  Now no lane waits on an
+//     empty plane and no block meets at a barrier;
 //   * rows longer than thr are hub rows, cut on the host into virtual rows
 //     of at most 128 entries sorted by degree (the JAX hub region).  A warp
 //     sums each hub virtual row (colsort2_hub_kernel), and a second small
 //     kernel folds each hub row's virtual rows in order into y.
 //
-// Each row of y is written exactly once, by its plane-0 lane or by the hub
+// Each row of y is written exactly once, by the main kernel or by the hub
 // fold: no atomics, the same result on every run, and no zeroing of y.
 // Bound by bytes: per entry a value and a column index, the gathered x
 // (through L2), two indptr reads per row and y once; the hub tables are
 // 16 bytes per 128 hub entries.
-#include "common.cuh"
+#include "rail_rows.cuh"
 
 namespace {
 
 constexpr int kMaxBlock = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename Store, typename Acc>
+// kOnePlane: no main row is longer than V, so no plane closes before the
+// row's end and the walk is routed's, with the same sums; its instantiation
+// drops the plane bookkeeping (LP's long rows ran 2-3 % faster so, PERF.md)
+template <typename Store, typename Acc, bool kOnePlane>
 __global__ void colsort2_main_kernel(const int* __restrict__ indptr,
                                      const int* __restrict__ col,
                                      const Store* __restrict__ val,
                                      const Acc* __restrict__ x,
-                                     Acc* __restrict__ y, int m, int K, int V,
-                                     int T, int thr) {
-  __shared__ Acc part[kMaxBlock];
-  const int rows = static_cast<int>(blockDim.x) / (K * T);
-  const int team = static_cast<int>(threadIdx.x) / T;
-  const int lane = static_cast<int>(threadIdx.x) & (T - 1);
-  const int plane = team % K;
-  const int rl = team / K;
-  const long long r = static_cast<long long>(blockIdx.x) * rows + rl;
-  bool own = false;
-  int start = 0, stop = 0;
-  if (rl < rows && r < m) {
-    start = indptr[r];
-    stop = indptr[r + 1];
-    own = stop - start <= thr;
-  }
-  Acc acc = 0;
-  if (own) {
-    const int lo = start + plane * V;
-    const int hi = min(stop, lo + V);
-    for (int e = lo + lane; e < hi; e += T)
-      acc += to_acc<Acc>(val[e]) * x[col[e]];
-  }
-  // every lane of the warp reaches the shuffles; teams of T lanes lie
-  // inside one warp, since T divides 32
-  for (int off = T >> 1; off > 0; off >>= 1)
-    acc += __shfl_down_sync(kFull, acc, off, T);
-  if (lane == 0) part[team] = acc;
-  __syncthreads();
-  if (own && plane == 0 && lane == 0) {
-    Acc total = 0;
-    for (int k = 0; k < K; ++k) total += part[rl * K + k];
-    y[r] = total;
-  }
+                                     Acc* __restrict__ y, int m, int V, int thr,
+                                     const int* __restrict__ long_rows,
+                                     int n_long, int short_blocks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  rail::rows_body<rail::kNoStage, false, Store, Acc>(
+      indptr, col, val, x, y, m, thr, kOnePlane ? rail::kNoPlanes : V, long_rows,
+      n_long, short_blocks, nullptr, nullptr, reinterpret_cast<Acc*>(smem_raw));
 }
 
 // one warp per hub virtual row: part[v] = sum of entries [lo[v], hi[v])
@@ -112,25 +89,26 @@ __global__ void colsort2_hub_fold_kernel(const Acc* __restrict__ part,
   y[rows[h]] = total;
 }
 
-bool bad_team(int K, int T, int block) {
-  return K < 1 || T < 1 || T > 32 || (T & (T - 1)) != 0 || K * T > block ||
-         block % 32 != 0 || block > kMaxBlock;
-}
-
 template <typename Store, typename Acc>
 int launch_main(const void* indptr, const void* col, const void* val,
-                const void* x, void* y, int m, int K, int V, int T, int thr,
-                int block, void* stream) {
-  if (bad_team(K, T, block) || V < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = block / (K * T);
-  const long long blocks = (static_cast<long long>(m) + rows - 1) / rows;
+                const void* x, void* y, int m, int V, int thr,
+                const void* long_rows, int n_long, int block, void* stream) {
+  if (block % 32 != 0 || block < 32 || block > kMaxBlock || V < 0 || thr < 1 ||
+      n_long < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int short_blocks = 0;
+  const long long blocks = rail::grid_blocks(m, n_long, block, &short_blocks);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  colsort2_main_kernel<Store, Acc><<<static_cast<unsigned>(blocks), block, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(Acc) * rail::kAhead * static_cast<size_t>(block);
+  auto kernel = V == 0 ? colsort2_main_kernel<Store, Acc, true>   // one plane
+                       : colsort2_main_kernel<Store, Acc, false>;
+  kernel<<<static_cast<unsigned>(blocks), block, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(col),
       static_cast<const Store*>(val), static_cast<const Acc*>(x),
-      static_cast<Acc*>(y), m, K, V, T, thr);
+      static_cast<Acc*>(y), m, V, thr, static_cast<const int*>(long_rows),
+      n_long, short_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,24 +139,27 @@ int launch_hub(const void* col, const void* val, const void* x, const void* lo,
 extern "C" {
 
 int cusp_colsort2_spmv_f32(const void* indptr, const void* col, const void* val,
-                           const void* x, void* y, int m, int K, int V, int T,
-                           int thr, int block, void* stream) {
-  return launch_main<float, float>(indptr, col, val, x, y, m, K, V, T, thr,
-                                   block, stream);
+                           const void* x, void* y, int m, int V, int thr,
+                           const void* long_rows, int n_long, int block,
+                           void* stream) {
+  return launch_main<float, float>(indptr, col, val, x, y, m, V, thr, long_rows,
+                                   n_long, block, stream);
 }
 
 int cusp_colsort2_spmv_bf16(const void* indptr, const void* col, const void* val,
-                            const void* x, void* y, int m, int K, int V, int T,
-                            int thr, int block, void* stream) {
-  return launch_main<__nv_bfloat16, float>(indptr, col, val, x, y, m, K, V, T,
-                                           thr, block, stream);
+                            const void* x, void* y, int m, int V, int thr,
+                            const void* long_rows, int n_long, int block,
+                            void* stream) {
+  return launch_main<__nv_bfloat16, float>(indptr, col, val, x, y, m, V, thr, long_rows,
+                                           n_long, block, stream);
 }
 
 int cusp_colsort2_spmv_f64(const void* indptr, const void* col, const void* val,
-                           const void* x, void* y, int m, int K, int V, int T,
-                           int thr, int block, void* stream) {
-  return launch_main<double, double>(indptr, col, val, x, y, m, K, V, T, thr,
-                                     block, stream);
+                           const void* x, void* y, int m, int V, int thr,
+                           const void* long_rows, int n_long, int block,
+                           void* stream) {
+  return launch_main<double, double>(indptr, col, val, x, y, m, V, thr, long_rows,
+                                     n_long, block, stream);
 }
 
 int cusp_colsort2_hub_f32(const void* col, const void* val, const void* x,

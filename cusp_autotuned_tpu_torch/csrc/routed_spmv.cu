@@ -1,4 +1,4 @@
-// Windowed CSR SpMV with x staged in shared memory:
+// Windowed CSR SpMV with x staged in shared memory where it pays:
 // y[r] = sum_{e in [indptr[r], indptr[r+1])} val[e] * x[col[e]] for the rows
 // of at most thr entries; longer rows are left to the colsort2 tail.
 //
@@ -9,97 +9,93 @@
 // unit gathers only within a lane; hub rows and blocks that the takes
 // cannot fill go to a colsort2 tail sub-plan.  Hopper gathers natively, so
 // what carries over is the idea, x reaching the products through a small
-// fast memory one column window at a time:
+// fast memory where the plan says that pays:
 //
-//   * a block of R threads owns R consecutive rows, a thread per row.  The
-//     host plan lists, for each row block, the windows of W columns that
-//     hold at least W / 8 of its entries (a staged window costs 4 W bytes
-//     of x read once, about what W / 8 gathered 32-byte sectors cost);
-//   * the block walks its staged windows in order: it loads x[w W, (w+1) W)
-//     into shared memory with coalesced loads, and each thread adds its
-//     row's entries of that window, read from shared memory;
-//   * entries in windows the plan did not stage are read from x directly
-//     (through L2), in the same pass: each thread keeps a cursor into its
-//     row, whose column indices are sorted, so it adds its entries in
-//     column order, window by window, whichever way x reaches them.  This
-//     takes the place of the JAX rail's under-filled blocks, which it
-//     ships to the tail;
+//   * the rows are walked by rail_rows.cuh, as colsort2's main rows with a
+//     single plane: a lane a row of at most 32 entries, the warp's lanes
+//     loading the rows' entries together (coalesced), and a warp for each
+//     longer row.  The first version gave each row one thread, whose loads
+//     of val and col did not coalesce, and on LP (2,000 rows of ~1,300
+//     entries) left 124 of the card's 132 SMs idle;
+//   * the host plan stages at most one span of x for each block of B rows:
+//     the sectors of one window of W columns between the first and the last
+//     that the block's short rows touch there, where those rows touch at
+//     least half of the span's 32-byte sectors and read each touched sector
+//     twice on average, in a plan whose spans hold at least an eighth of
+//     the entries (kernels/routed.py: plan_spans).  The block copies
+//     the span into shared memory and its short rows read x there for the
+//     columns it covers, through L2 elsewhere, in the same ordered pass;
+//     the first version copied all W columns of every window that held
+//     W / 8 of the block's entries, and lost to reading x through L2 on
+//     every matrix measured;
+//   * a block with no span passes no barrier and tests no column against
+//     one, and a plan with no span launches the instantiation without the
+//     staging code (LP's long rows ran 3-4 % faster without it, and
+//     poisson5pt's rows 7 % when a few spans made every block carry it,
+//     PERF.md); long rows read x through L2;
 //   * rows above thr (the hub rows) are skipped here; the colsort2 hub
 //     kernels (colsort2_spmv.cu) write them into the same y, so y is the
 //     main part plus the tail as one result.
 //
 // Each row of y is written exactly once: no atomics, the same result on
 // every run.  Bound by bytes: per entry a value and a column index, x once
-// per staged window and row block plus the directly gathered entries
-// (through L2), two indptr reads per row and y once.  Shared memory is
-// W * sizeof(x) bytes, up to 128 KB (16,384 f64), above the default 48 KB.
-#include "common.cuh"
+// per staged span and row block plus the gathered entries (through L2), two
+// indptr reads per row and y once.  Shared memory: 4 B slots and the
+// longest span, at most (4096 + 16,384) f64, 160 KB, above the default 48 KB.
+#include "rail_rows.cuh"
 
 namespace {
 
 constexpr int kMaxBlock = 1024;
-constexpr int kMaxSmem = 128 * 1024;
+constexpr int kMaxSpan = 16384;
 
-template <typename Store, typename Acc>
+template <typename Store, typename Acc, bool kStage>
 __global__ void routed_spmv_kernel(const int* __restrict__ indptr,
                                    const int* __restrict__ col,
                                    const Store* __restrict__ val,
                                    const Acc* __restrict__ x,
-                                   Acc* __restrict__ y, int m, int n, int thr,
-                                   const int* __restrict__ win_ptr,
-                                   const int* __restrict__ win_ids, int W) {
-  extern __shared__ unsigned char smem_raw[];
-  Acc* xs = reinterpret_cast<Acc*>(smem_raw);
-  const int rb = blockIdx.x;
-  const long long r = static_cast<long long>(rb) * blockDim.x + threadIdx.x;
-  int p = 0, stop = 0;
-  bool own = false;
-  if (r < m) {
-    p = indptr[r];
-    stop = indptr[r + 1];
-    own = stop - p <= thr;
-  }
-  if (!own) stop = p;                 // a hub row or no row: nothing to walk
-  Acc acc = 0;
-  for (int wi = win_ptr[rb]; wi < win_ptr[rb + 1]; ++wi) {
-    const int c0 = win_ids[wi] * W;
-    const int width = min(W, n - c0);
-    for (; p < stop && col[p] < c0; ++p) acc += to_acc<Acc>(val[p]) * x[col[p]];
-    __syncthreads();                  // the previous window is consumed
-    for (int i = threadIdx.x; i < width; i += blockDim.x) xs[i] = x[c0 + i];
-    __syncthreads();
-    for (; p < stop && col[p] < c0 + width; ++p)
-      acc += to_acc<Acc>(val[p]) * xs[col[p] - c0];
-  }
-  for (; p < stop; ++p) acc += to_acc<Acc>(val[p]) * x[col[p]];
-  if (own) y[r] = acc;
+                                   Acc* __restrict__ y, int m, int thr,
+                                   const int* __restrict__ long_rows,
+                                   int n_long, int short_blocks,
+                                   const int* __restrict__ span_lo,
+                                   const int* __restrict__ span_len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  rail::rows_body<rail::kFullMode, kStage, Store, Acc>(
+      indptr, col, val, x, y, m, thr, rail::kNoPlanes, long_rows, n_long,
+      short_blocks, span_lo, span_len, reinterpret_cast<Acc*>(smem_raw));
 }
 
 template <typename Store, typename Acc>
 int launch(const void* indptr, const void* col, const void* val, const void* x,
-           void* y, int m, int n, int thr, const void* win_ptr,
-           const void* win_ids, int W, int block, void* stream) {
-  const long long smem = static_cast<long long>(W) * sizeof(Acc);
-  if (W < 1 || smem > kMaxSmem || block % 32 != 0 || block > kMaxBlock)
+           void* y, int m, int thr, const void* long_rows, int n_long,
+           const void* span_lo, const void* span_len, int max_span, int block,
+           void* stream) {
+  if (max_span < 0 || max_span > kMaxSpan || block % 32 != 0 || block < 32 ||
+      block > kMaxBlock || thr < 1 || n_long < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;     // once per instantiation, before any capture
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        routed_spmv_kernel<Store, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        routed_spmv_kernel<Store, Acc, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(Acc) * (rail::kAhead * kMaxBlock + kMaxSpan)));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const long long blocks = (static_cast<long long>(m) + block - 1) / block;
+  int short_blocks = 0;
+  const long long blocks = rail::grid_blocks(m, n_long, block, &short_blocks);
+  if (blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  routed_spmv_kernel<Store, Acc><<<static_cast<unsigned>(blocks), block,
-                                   static_cast<size_t>(smem),
-                                   static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(Acc) * static_cast<size_t>(rail::kAhead * block + max_span);
+  auto kernel = max_span > 0 ? routed_spmv_kernel<Store, Acc, true>
+                             : routed_spmv_kernel<Store, Acc, false>;
+  kernel<<<static_cast<unsigned>(blocks), block, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(col),
       static_cast<const Store*>(val), static_cast<const Acc*>(x),
-      static_cast<Acc*>(y), m, n, thr, static_cast<const int*>(win_ptr),
-      static_cast<const int*>(win_ids), W);
+      static_cast<Acc*>(y), m, thr, static_cast<const int*>(long_rows), n_long,
+      short_blocks, static_cast<const int*>(span_lo),
+      static_cast<const int*>(span_len));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -108,27 +104,32 @@ int launch(const void* indptr, const void* col, const void* val, const void* x,
 extern "C" {
 
 int cusp_routed_spmv_f32(const void* indptr, const void* col, const void* val,
-                         const void* x, void* y, int m, int n, int thr,
-                         const void* win_ptr, const void* win_ids, int W,
-                         int block, void* stream) {
-  return launch<float, float>(indptr, col, val, x, y, m, n, thr, win_ptr,
-                              win_ids, W, block, stream);
+                         const void* x, void* y, int m, int thr,
+                         const void* long_rows, int n_long, const void* span_lo,
+                         const void* span_len, int max_span, int block,
+                         void* stream) {
+  return launch<float, float>(indptr, col, val, x, y, m, thr, long_rows, n_long,
+                              span_lo, span_len, max_span, block, stream);
 }
 
 int cusp_routed_spmv_bf16(const void* indptr, const void* col, const void* val,
-                          const void* x, void* y, int m, int n, int thr,
-                          const void* win_ptr, const void* win_ids, int W,
-                          int block, void* stream) {
-  return launch<__nv_bfloat16, float>(indptr, col, val, x, y, m, n, thr,
-                                      win_ptr, win_ids, W, block, stream);
+                          const void* x, void* y, int m, int thr,
+                          const void* long_rows, int n_long, const void* span_lo,
+                          const void* span_len, int max_span, int block,
+                          void* stream) {
+  return launch<__nv_bfloat16, float>(indptr, col, val, x, y, m, thr, long_rows,
+                                      n_long, span_lo, span_len, max_span,
+                                      block, stream);
 }
 
 int cusp_routed_spmv_f64(const void* indptr, const void* col, const void* val,
-                         const void* x, void* y, int m, int n, int thr,
-                         const void* win_ptr, const void* win_ids, int W,
-                         int block, void* stream) {
-  return launch<double, double>(indptr, col, val, x, y, m, n, thr, win_ptr,
-                                win_ids, W, block, stream);
+                         const void* x, void* y, int m, int thr,
+                         const void* long_rows, int n_long, const void* span_lo,
+                         const void* span_len, int max_span, int block,
+                         void* stream) {
+  return launch<double, double>(indptr, col, val, x, y, m, thr, long_rows,
+                                n_long, span_lo, span_len, max_span, block,
+                                stream);
 }
 
 }  // extern "C"

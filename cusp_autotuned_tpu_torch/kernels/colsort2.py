@@ -9,11 +9,14 @@ Replaces the JAX package's colsort2 Pallas kernel, `_v2_kernel`
 TPU slot layout (edge colouring, one-hot MXU scatter, VMEM windows): a row
 of at most thr = min(hub_cap, K * V) entries is cut into K = `vrow_planes`
 virtual rows of at most V = `vrow_len` entries, plane k holding entries
-[k V, (k + 1) V); a team of lanes sums each virtual row and the planes fold
-in order 0..K-1.  Longer rows form the hub region: virtual rows of at most
-HUB_SPLIT entries, sorted by degree, each summed by a warp and folded per
-row in order by a second small kernel.  The routed rail rides the hub
-kernels alone as its tail (`colsort2_hub`).
+[k V, (k + 1) V); each plane is summed on its own and the planes fold in
+order 0..K-1.  The SpMV kernel walks the main rows as `csrc/rail_rows.cuh`
+says: a lane sums a row of at most SHORT_ROW entries, the warp's lanes
+loading the rows' entries together, and a warp sums each longer main row
+(`long_rows`, planned here).  Longer rows form the hub region: virtual
+rows of at most HUB_SPLIT entries, sorted by degree, each summed by a warp
+and folded per row in order by a second small kernel.  The routed rail
+rides the hub kernels alone as its tail (`colsort2_hub`).
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ import torch
 
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE
 from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
@@ -32,6 +34,8 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
 
 K_DEFAULT = 2                      # vrow_planes, as the JAX package's K_DEFAULT
 HUB_SPLIT = 128                    # entries per hub virtual row, as the JAX HUB_SPLIT
+SHORT_ROW = 32                     # a main row of at most 32 entries: one lane
+                                   # (kShort in csrc/rail_rows.cuh)
 
 
 def auto_hub_cap(nnz, m):
@@ -40,12 +44,11 @@ def auto_hub_cap(nnz, m):
     return int(max(64, 4 * nnz // max(1, m)))
 
 
-def team_lanes(V):
-    """Lanes of the team that sums a virtual row of at most V entries: the
-    fewest, a power of two up to a warp, that leave each lane at most
-    ENTRIES_PER_LANE entries (the binned rail's target)."""
-    need = -(-int(V) // ENTRIES_PER_LANE)
-    return min(32, 1 << max(0, need - 1).bit_length())
+def long_rows(indptr, thr):
+    """int32 ids of the main rows that a warp sums alone (rail_rows.cuh):
+    more than SHORT_ROW entries and at most thr."""
+    lengths = np.diff(np.asarray(indptr, dtype=np.int64))
+    return np.nonzero((lengths > SHORT_ROW) & (lengths <= thr))[0].astype(np.int32)
 
 
 def plan_hub(indptr, hub_rows):
@@ -120,7 +123,8 @@ def colsort2_spmv_plain(indptr, col, val, hub, x, num_rows, K, V, thr):
 
 
 def _check(indptr, col, val, hub, x, shape, rank):
-    """Raise on what the kernels do not take."""
+    """Raise on what the kernels do not take (hub: the hub tables and, for
+    the SpMV kernel, the long rows)."""
     m, n = shape
     if not all(t.device == x.device for t in (indptr, col, val, *hub)) \
             or x.device.type != "cuda":
@@ -133,7 +137,8 @@ def _check(indptr, col, val, hub, x, shape, rank):
             f"colsort2 kernel takes f32/bf16 values with f32 x, or f64 with f64 "
             f"(got {val.dtype} values, {x.dtype} x)")
     if not all(t.dtype == torch.int32 for t in (indptr, col, *hub)):
-        raise InvalidInputException("indptr, col and the hub tables must be int32")
+        raise InvalidInputException(
+            "indptr, col, the hub tables and the long rows must be int32")
     if (indptr.shape != (m + 1,) or col.shape != val.shape or x.dim() != rank
             or x.shape[0] != n or (rank == 2 and x.shape[1] < 1)):
         raise InvalidInputException(
@@ -179,9 +184,11 @@ def colsort2_hub_spmm(col, val, hub, x, y, block=_build.DEFAULT_BLOCK):
 colsort2_hub_spmm.launches = 0
 
 
-def colsort2_spmv(indptr, col, val, hub, x, shape, K, V, thr,
-                  block=_build.DEFAULT_BLOCK):
-    """y = A @ x through the plan.  On CPU tensors this is the plain
+def colsort2_spmv(indptr, col, val, hub, long, x, shape, K, V, thr,
+                  block=_build.DEFAULT_BLOCK, one_plane=False):
+    """y = A @ x through the plan (`long`: the long_rows ids; one_plane: no
+    main row is longer than V, which lets the kernel drop its plane
+    bookkeeping, with the same sums).  On CPU tensors this is the plain
     version; on CUDA tensors it launches the main kernel and, where the plan
     has hub rows, the hub pair (a 2-D x goes to colsort2_spmm), and raises
     on what the kernels do not take."""
@@ -193,11 +200,12 @@ def colsort2_spmv(indptr, col, val, hub, x, shape, K, V, thr,
     m = shape[0]
     if x.device.type == "cpu" and val.device.type == "cpu":
         return colsort2_spmv_plain(indptr, col, val, hub, x, m, K, V, thr)
-    _check(indptr, col, val, hub, x, shape, 1)
+    _check(indptr, col, val, hub + (long,), x, shape, 1)
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_colsort2_spmv", val.dtype, x.device, indptr, col, val,
-                      x, y, m, K, V, team_lanes(V), thr, block)
+                      x, y, m, 0 if one_plane else V, thr, long, long.numel(),
+                      block)
         colsort2_spmv.launches += 1
         colsort2_hub(col, val, hub, x, y, block)
     return y
@@ -254,21 +262,26 @@ def build_colsort2(A, config):
         A = convert(A, "csr")
     if A.nnz == 0:
         raise FormatConversionException("empty matrix — use the default path")
-    thr, V, hub = plan_colsort2(host_array(A.indptr), K, V,
-                                int(config.get("hub_cap") or 0))
+    indptr = host_array(A.indptr)
+    thr, V, hub = plan_colsort2(indptr, K, V, int(config.get("hub_cap") or 0))
+    long = long_rows(indptr, thr)
+    lengths = np.diff(np.asarray(indptr, dtype=np.int64))
+    one_plane = int(lengths[lengths <= thr].max(initial=0)) <= V
     if K * 32 > block:
         raise NotImplementedException(
-            f"vrow_planes {K} needs block_size >= {32 * K}: the K teams of a "
-            f"row share one block")
+            f"vrow_planes {K} needs block_size >= {32 * K}: the SpMM kernel's "
+            f"K teams of a row share one block")
     nnz = A.nnz
     arrays = {"indptr": A.indptr, "col": A.col[:nnz].contiguous(),
               "val": A.val[:nnz].to(plan_value_dtype(config, A.dtype)).contiguous(),
-              "hub": hub_tensors(hub, A.device)}
+              "hub": hub_tensors(hub, A.device),
+              "long": torch.from_numpy(long).to(A.device)}
     shape = A.shape
 
     def apply(arrays, x):
         return colsort2_spmv(arrays["indptr"], arrays["col"], arrays["val"],
-                             arrays["hub"], x, shape, K, V, thr, block)
+                             arrays["hub"], arrays["long"], x, shape, K, V, thr,
+                             block, one_plane)
 
     def fn(x):
         return apply(arrays, x)
@@ -277,5 +290,5 @@ def build_colsort2(A, config):
     fn.apply = apply
     fn.plan_stats = {"impl": "colsort2", "vrow_planes": K, "vrow_len": V,
                      "thr": thr, "hub_rows": int(hub[0].size),
-                     "hub_vrows": int(hub[2].size)}
+                     "hub_vrows": int(hub[2].size), "long_rows": int(long.size)}
     return fn

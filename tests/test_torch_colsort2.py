@@ -27,8 +27,8 @@ from cusp_autotuned_tpu.kernels.pallas_colsort2 import build_colsort2 as jax_col
 from cusp_autotuned_tpu_torch.backend.reference import from_scipy, reference_spmv
 from cusp_autotuned_tpu_torch.kernels import build_spmv
 from cusp_autotuned_tpu_torch.kernels.colsort2 import (
-    HUB_SPLIT, build_colsort2, colsort2_hub, colsort2_spmv, plan_colsort2,
-    team_lanes,
+    HUB_SPLIT, SHORT_ROW, build_colsort2, colsort2_hub, colsort2_spmv, long_rows,
+    plan_colsort2,
 )
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -107,9 +107,8 @@ def test_plan_cuts_rows_into_planes_and_the_hub_region():
     # V = ceil(hub_cap / K)
     thr, V, hub = plan_colsort2(indptr, K=4)
     assert (thr, V, hub[0].tolist()) == (215, 54, [6])
-    # the fewest lanes that leave each at most 4 entries, up to a warp
-    assert [team_lanes(v) for v in (1, 4, 5, 8, 9, 32, 100, 129)] == \
-        [1, 1, 2, 2, 4, 8, 32, 32]
+    # the main rows above SHORT_ROW entries take a warp each
+    assert long_rows(indptr, 215).tolist() == [7] and SHORT_ROW == 32
     assert HUB_SPLIT == 128
 
 

@@ -657,13 +657,16 @@ def test_colsort2_spmm_kernel_matches_plain_on_card(cuda_device, K, V, hub_cap,
 @pytest.mark.parametrize("block", [256, 512])
 @pytest.mark.parametrize("matrix", ["rails", "scattered"])
 def test_routed_kernel_matches_plain_on_card(cuda_device, matrix, block, window):
-    """The rails matrix has a tail (its 4096- and 1500-entry rows); the
-    scattered one mixes staged and direct windows, with unsorted rows."""
+    """The rails matrix has a tail (its 4096- and 1500-entry rows) and
+    stages spans for its short rows; the scattered one's rows of ~49
+    entries (8 scattered and a band of 41), some unsorted, take a warp
+    each and stage nothing."""
     A = (from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
          if matrix == "rails" else _scattered_with_band())
     fn = build_routed(A, {"window": window, "block_size": block})
     a, st = fn.planned_arrays, fn.plan_stats
-    assert st["staged_windows"] > 0 and (st["tail"] > 0) == (matrix == "rails")
+    assert (st["tail"] > 0) == (st["staged_spans"] > 0) == (matrix == "rails")
+    assert st["long_rows"] > 0
     launched = _rail_case(
         fn, lambda x: routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
                                         x, A.num_rows, st["hub_cap"]),
@@ -686,6 +689,86 @@ def test_routed_spmm_kernel_matches_plain_on_card(cuda_device, matrix, window,
                                         X, A.num_rows, st["hub_cap"]),
         _block(A.num_cols, k, cuda_device), (routed_spmm, colsort2_hub_spmm))
     assert launched == [1, int(matrix == "rails")]
+
+
+def _edge_rows(lengths, n, seed, tail_cols=0):
+    """A seeded CSR matrix of the given row lengths (columns without repeats
+    in a row; with tail_cols, drawn from x's last tail_cols columns)."""
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(lengths, np.int64)
+    lo = n - tail_cols if tail_cols else 0
+    col = np.concatenate([np.sort(rng.choice(np.arange(lo, n), k, replace=False))
+                          for k in lengths] + [np.zeros(0, np.int64)])
+    indptr = np.r_[0, np.cumsum(lengths)]
+    return sp.csr_matrix((rng.uniform(-1, 1, indptr[-1]), col, indptr),
+                         shape=(lengths.size, n))
+
+
+def _rail_plain(impl, fn, A):
+    a, st = fn.planned_arrays, fn.plan_stats
+    if impl == "colsort2":
+        return lambda x: colsort2_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
+                                             x, A.num_rows, st["vrow_planes"],
+                                             st["vrow_len"], st["thr"])
+    return lambda x: routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"], x,
+                                       A.num_rows, st["hub_cap"])
+
+
+@functools.cache
+def _edges_host():
+    """The row walk's edges (csrc/rail_rows.cuh): rows of 16/17, 32/33 and
+    64/65 entries (short or long, main or hub at thr 16 and 64), runs of
+    40 to 1000 empty rows, LP's shape (a warp a row) and a span at x's end."""
+    edges = _edge_rows([0] * 40 + [16, 17, 32, 33, 64, 65, 5, 0] * 300 + [0] * 1000
+                       + [3] * 50 + [0] * 70, 7000, 31)
+    lp = _edge_rows(np.random.RandomState(4).randint(1200, 1400, 2000), 9000, 32)
+    tail = _edge_rows([16] * 2048, 4998, 33, tail_cols=300)
+    return {"edges": edges, "lp": lp, "tail": tail}
+
+
+@pytest.mark.parametrize("impl,matrix,cfg", [
+    ("colsort2", "edges", {"vrow_planes": 2, "vrow_len": 8}),
+    ("colsort2", "edges", {"vrow_planes": 2, "vrow_len": 32, "hub_cap": 64}),
+    ("colsort2", "edges", {"vrow_planes": 4, "vrow_len": 0, "hub_cap": 64,
+                           "block_size": 512}),
+    ("colsort2", "lp", {}),
+    ("routed", "edges", {"hub_cap": 64, "window": 4096}),
+    ("routed", "edges", {"hub_cap": 64, "block_size": 512}),
+    ("routed", "lp", {}),
+    ("routed", "tail", {"window": 4096}),
+])
+def test_rail_row_walk_edges_match_plain_on_card(cuda_device, impl, matrix, cfg):
+    """Every edge of the shared row walk against the plain version, two calls
+    equal bit for bit; on LP's shape every row takes a warp, and the span
+    at x's end is staged."""
+    A = from_scipy(_edges_host()[matrix], "csr", dtype=torch.float32,
+                   device=cuda_device)
+    fn = (build_colsort2 if impl == "colsort2" else build_routed)(A, cfg)
+    st = fn.plan_stats
+    if matrix == "lp":
+        assert st["long_rows"] == A.num_rows
+    if matrix == "tail":
+        assert st["staged_spans"] == 8 and st["max_span"] > 0
+    counter = colsort2_spmv if impl == "colsort2" else routed_spmv
+    launched = _rail_case(fn, _rail_plain(impl, fn, A), _x(A.num_cols, cuda_device),
+                          (counter,))
+    assert launched == [1]
+
+
+@pytest.mark.parametrize("impl", ["colsort2", "routed"])
+def test_rail_row_walk_of_a_band_is_the_whole_walk_on_card(cuda_device, impl):
+    """Rows 300..2599 planned alone (as shard_planned_blocks plans a band,
+    the whole matrix's hub_cap) give the whole plan's y on those rows bit
+    for bit: each row's sum is taken in an order fixed by the row."""
+    S = _edges_host()["edges"]
+    cfg = {"vrow_planes": 2, "vrow_len": 32, "hub_cap": 64} if impl == "colsort2" \
+        else {"hub_cap": 64, "window": 4096}
+    build = build_colsort2 if impl == "colsort2" else build_routed
+    x = _x(S.shape[1], cuda_device)
+    whole = build(from_scipy(S, "csr", dtype=torch.float32, device=cuda_device), cfg)(x)
+    band = build(from_scipy(S[300:2600], "csr", dtype=torch.float32,
+                            device=cuda_device), cfg)(x)
+    assert torch.equal(band, whole[300:2600])
 
 
 @pytest.mark.parametrize("impl", ["colsort2", "routed"])
@@ -954,11 +1037,11 @@ def test_routed_probe_matches_plain_on_card(cuda_device, mode):
     x = _x(A.num_cols, cuda_device)
     config = {"hub_cap": 32, "window": 4096, "block_size": 256}
     fn, info = routed_probe.build_probe(A, config, mode)
-    assert info["staged_windows"] > 0 and info["tail_share"] > 0
+    assert info["staged_spans"] > 0 and info["tail_share"] > 0
     before = routed_probe.routed_probe.launches
     y = fn(x)
     assert routed_probe.routed_probe.launches == before + 1
-    args = (A.shape, info["hub_cap"], info["window"], mode, 256)
+    args = (A.shape, info["hub_cap"], mode, 256)
     a = fn.planned_arrays
     plain = routed_probe.routed_probe_plain(a, x, *args)
     scale = routed_probe.routed_probe_plain({**a, "val": a["val"].abs()}, x.abs(),

@@ -190,16 +190,17 @@ def test_routed_probe_full_matches_pallas():
     np.testing.assert_allclose(y.numpy(), ref, **RAIL_TOL)
     hub = S.indptr[8] - S.indptr[7]           # row 7: its six entries and 100 more
     assert hub >= 100 and info["tail_share"] == pytest.approx(hub / S.nnz)
-    assert info["staged_windows"] >= 8 and 0.5 < info["staged_share"] < 0.8
+    assert info["staged_spans"] >= 8 and 0.5 < info["staged_share"] < 0.8
 
 
 def _numpy_modes(S, x, info, arrays):
     """Each mode's definition in numpy: the entries of each row of at most
-    hub_cap entries (own rows), staged where their column's window is one
-    that the row's block of 256 rows stages."""
+    hub_cap entries (own rows), staged where the row has at most 32 entries
+    and their column lies in the span that the row's block of 256 rows
+    stages."""
     m, n = S.shape
-    W, B, thr = info["window"], CONFIG["block_size"], info["hub_cap"]
-    win_ptr, win_ids = (t.numpy() for t in arrays["windows"][:2])
+    B, thr = CONFIG["block_size"], info["hub_cap"]
+    span_lo, span_len = (t.numpy() for t in arrays["spans"])
     indptr, col, val = S.indptr, S.indices, S.data.astype(np.float64)
     out = {k: np.zeros(m) for k in routed_probe.MODES}
     for r in range(m):
@@ -210,7 +211,8 @@ def _numpy_modes(S, x, info, arrays):
             for mode in ("full", "nostage", "stageonly"):
                 out[mode][r] = full
             continue
-        staged = np.isin(c // W, win_ids[win_ptr[r // B]:win_ptr[r // B + 1]])
+        s0 = span_lo[r // B]
+        staged = (hi - lo <= 32) & (c >= s0) & (c < s0 + span_len[r // B])
         out["full"][r] = out["nostage"][r] = out["nohub"][r] = full
         out["stageonly"][r] = float(v[staged] @ x[c[staged]])
         out["loads"][r] = float((v + 1e-30 * c).sum())
