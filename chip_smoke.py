@@ -106,7 +106,7 @@ Phases:
                matrices above, on the JAX package's colsort2 and routed
                test shapes and on the row walk's edges (rows of 32 and 33
                entries and of thr and thr + 1, runs of empty rows, LP's
-               2,000 rows of ~1,300 entries, a staged span at x's end), two
+               2,000 rows of ~1,300 entries, rows that read x's end), two
                calls equal bit for bit; then both L2-cold beside cuSPARSE on
                poisson5pt 1000x1000, the skewed 1M-row matrix and LP, on the
                phase's plans and the default ones (rows 7 and 8)
@@ -128,7 +128,7 @@ Phases:
                shipped, team=T and xtile against dia_spmm on every shape
                its main() times, poisson5pt 1000x1000 at k = 16 and 128
                and 300x300 at k = 128, and on 1000x1000 at k = 3;
-               routed_probe full and nostage against routed_spmv on
+               routed_probe full against routed_spmv on
                Economics and LP, two plans each), then the probes path
   take_probe   the take probe (both instantiations: x staged in shared
                memory, x read through L1/L2) against its plain version at
@@ -827,7 +827,7 @@ def new_rails_phase(device, triad_gbps, matrices):
     # the row walk's edges (csrc/rail_rows.cuh): rows of 32 and 33 entries
     # (a lane or a warp) and of thr and thr + 1 (main or hub), runs of
     # empty rows, LP's rows of ~1,300 entries (a warp each under the default
-    # plans), and a staged span that ends at x's last column
+    # plans), and rows that read x's last columns
     edges = edge_csr([16, 17, 32, 33, 64, 65, 5, 0] * 700, 20000, 21, device)
     gaps = edge_csr([0] * 40 + ([3, 0, 33] + [0] * 100 + [7] * 40 + [0] * 1000)
                     * 30 + [0] * 70, 5000, 22, device)
@@ -840,7 +840,7 @@ def new_rails_phase(device, triad_gbps, matrices):
          {}, 0),
         ("Williams LP (suite 2.0), default plans", lp, {"vrow_len": 0}, {"window": 0},
          0),
-        ("staged span at x's end (n 4998)", edge_csr([16] * 4096, 4998, 23, device,
+        ("rows that read x's end (n 4998)", edge_csr([16] * 4096, 4998, 23, device,
                                                      tail_cols=300), {}, {}, 0),
     ]
     cases += [(f"{name} k=16", A, {}, {}, 16) for name, A in big]
@@ -895,16 +895,14 @@ def new_rails_phase(device, triad_gbps, matrices):
         r, st = fr.planned_arrays, fr.plan_stats
         out[f"routed_{kind}"][name] = compare(
             f"routed {name} (hub_cap {st['hub_cap']}, tail {st['tail']}, "
-            f"{st['long_rows']} long rows, {st['staged_spans']} staged spans, "
-            f"{st['staged_spmm_windows']} staged SpMM windows)", lambda: fr(X),
+            f"{st['long_rows']} long rows, {st['staged_spmm_windows']} staged "
+            f"SpMM windows)", lambda: fr(X),
             lambda: routed_spmv_plain(r["indptr"], r["col"], r["val"], r["hub"], X, m,
                                       st["hub_cap"]),
             RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
             per_sample)
         if k == 0 and not torch.equal(fr(X), fr(X)):
             raise RuntimeError(f"routed_spmv {name}: two calls differ")
-        if name.startswith("staged span") and not st["staged_spans"]:
-            raise RuntimeError("routed: the span at x's end was not staged")
         del fr, r, scale, library, X
 
     # tests/test_pallas.py:942: both rails' packages refuse routed here
@@ -2022,8 +2020,7 @@ def probes_phase(device, triad_gbps):
     del A, X, fn
 
     log("probes: routed_probe against its plain versions (rtol 1e-4, atol 1e-4 "
-        "of each row's sum of |a x|), full and nostage equal to routed_spmv bit "
-        "for bit:")
+        "of each row's sum of |a x|), full equal to routed_spmv bit for bit:")
     for name in ("Economics", "LP"):
         R = routed_probe.suite_matrix(name, device)
         x = seeded_x(R.num_cols, 0, device)
@@ -2032,21 +2029,20 @@ def probes_phase(device, triad_gbps):
             for mode in routed_probe.MODES:
                 fn, info = routed_probe.build_probe(R, config, mode)
                 a = fn.planned_arrays
-                args = (R.shape, info["hub_cap"], mode, config["block_size"])
+                args = (R.shape, info["hub_cap"], mode)
                 plain = routed_probe.routed_probe_plain(a, x, *args)
                 scale = routed_probe.routed_probe_plain(
                     {**a, "val": a["val"].abs()}, x.abs(), *args)
                 y = fn(x)
                 err = check_mode(f"routed_probe {mode} {name} {config}", y, plain,
                                  RAIL_RTOL, RAIL_ATOL, scale)
-                if mode in ("full", "nostage"):
+                if mode == "full":
                     check_equal(f"routed_probe {mode} {name} {config}", y, shipped)
                 log(f"  {mode} {name} {config}: max abs err {err:.3e}")
         if name == "Economics":
             fn, info = routed_probe.build_probe(R, routed_probe.CONFIGS[0], "full")
             a = fn.planned_arrays
-            args = (R.shape, info["hub_cap"], "full",
-                    routed_probe.CONFIGS[0]["block_size"])
+            args = (R.shape, info["hub_cap"], "full")
             records["routed_probe"] = compare(
                 "routed_probe full (Economics, the default plan)", lambda: fn(x),
                 lambda: routed_probe.routed_probe_plain(a, x, *args), RAIL_RTOL,

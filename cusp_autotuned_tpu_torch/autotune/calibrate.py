@@ -12,13 +12,15 @@ replaces the JAX package's Pallas probe `kernel`, calibrate.py:144): the
 nanoseconds of one pass over a (128, 128) tile, 16,384 gathered elements,
 from x staged in shared memory and, in its second instantiation, from x
 read through L1/L2.  `calibrate()` measures them all, persists them as JSON
-keyed by the card's name and applies them to the cost model
-(`cost_model.DEVICE_MODEL`); `load()` restores them for that card only.
+keyed by the card's name and applies those the cost model prices with (the
+first three: no kernel of the port stages x for an SpMV any more, so the
+take probe's price is reported, not priced) to `cost_model.DEVICE_MODEL`;
+`load()` restores them for that card only.
 
 The JAX package scales its probe by a TPU-fitted effective-pass factor and
 guards the constants with an archived TPU model check; neither applies to
-this card: the cost model reads the probe as it is, and chip_smoke.py's
-`model` line checks the model's picks against the card's walks.  Every
+this card, and chip_smoke.py's `model` line checks the model's picks
+against the card's walks.  Every
 measurement here needs the card: a number taken on the CPU is never
 written under these names.
 """

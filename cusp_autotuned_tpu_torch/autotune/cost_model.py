@@ -15,14 +15,12 @@ this model prices each launch plan of the port's impls on one card
     once) over eff_<impl> x the measured stream-triad rate; x read through
     L1/L2, one 32-byte sector for each distinct (32-row group, 8-column
     group) pair of the pattern, at gather_scale x the index_select probe's
-    price an element, or at the take probe's price (tile_take_ns / 16384)
-    for the entries whose x the routed plan stages in shared memory (their
-    spans' bytes then count as streamed);
-    and the lane-iterations it issues, idle lanes included (a lane an
-    entry for the csr `cuda` kernel's tiles, length-binned teams for
-    binned, rail_rows.cuh's walk for colsort2 and routed: a warp a chunk of
-    32 short-row entries of its 32 rows and a warp a chunk of a long row; a
-    lane an entry for colsort), at lane_ns each;
+    price an element; and the lane-iterations it issues, idle lanes
+    included (a lane an entry for the csr `cuda` kernel's tiles,
+    length-binned teams for binned, rail_rows.cuh's walk for colsort2 and
+    routed: a warp a chunk of 32 short-row entries of its 32 rows and a
+    warp a chunk of a long row; a lane an entry for colsort), at lane_ns
+    each;
   - the latency of its longest thread's chain of dependent round trips
     (colsort2's and routed's warps walk a group's chunks or a long row's
     rounds of four; the DIA kernel walks every diagonal for each row; the
@@ -34,8 +32,9 @@ The constants below were fitted on an NVIDIA H100 80GB HBM3 at a 700 W
 power limit by `python -m cusp_autotuned_tpu_torch.autotune.fit_cost_model`
 (every priced plan timed as the tuner times it, on the matrices that
 script lists); `calibrate()` replaces the measured rates (stream_gbps,
-gather_ns, segsum_ns, tile_take_ns) with the card's in use and `_auto_load_calibration` restores them, keyed by the card's
-name.  The model prices vectors x only.
+gather_ns, segsum_ns) with the card's in use and
+`_auto_load_calibration` restores them, keyed by the card's name.  The
+model prices vectors x only.
 """
 
 from __future__ import annotations
@@ -49,22 +48,23 @@ from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE, HUB_CAP
 from cusp_autotuned_tpu_torch.kernels.colsort2 import HUB_SPLIT, SHORT_ROW, auto_hub_cap
 from cusp_autotuned_tpu_torch.kernels.colsort import GAP_ROWS
 from cusp_autotuned_tpu_torch.kernels.csr import ENTRIES_PER_THREAD, tile_rows, tile_splits
-from cusp_autotuned_tpu_torch.kernels.routed import MAX_TAIL, plan_spans
+from cusp_autotuned_tpu_torch.kernels.routed import MAX_TAIL
 
 # Measured and fitted on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
 # fit_cost_model.py (368 plans on 31 matrices, with the csr `cuda` kernel
 # priced as nnz-balanced tiles and colsort as two launches; model /
-# measured median 1.050, quartiles 0.860 and 1.246).  A refit with colsort2
-# and routed priced as rail_rows.cuh's walk (median 1.012, quartiles 0.911
-# and 1.127) lowered lane_ns five-fold and tipped the near-tie between the
-# DIA kernel and binned on small stencil levels (poisson5pt 128², 2.99
-# against 2.88 us) to binned, so these constants stay.  calibrate()
-# measures the first four on the card in use.
+# measured median 1.050, quartiles 0.860 and 1.246).  With colsort2 and
+# routed priced as rail_rows.cuh's walk the same plans read median 1.115,
+# quartiles 0.950 and 1.338.  A refit (median 1.016, quartiles 0.927 and
+# 1.111) lowers lane_ns six-fold, with or without a lane price of the
+# walk's own, and so tips the near-tie between the DIA kernel and binned
+# on small stencil levels (poisson5pt 128², 2.99 against 2.88 us) to
+# binned, where the card times the DIA kernel faster: these constants
+# stay.  calibrate() measures the first three on the card in use.
 DEVICE_MODEL: Dict[str, float] = dict(
     stream_gbps=3063.20,      # stream triad, GB/s
     gather_ns=0.010401,       # index_select, ns an element (4M elements)
     segsum_ns=0.012065,       # sorted index_add_, ns an element
-    tile_take_ns=6.6071,      # take probe: one pass over a (128, 128) tile
     launch_us=2.25222,        # a kernel launch inside a graph replay
     lane_ns=0.00208385,       # one lane-iteration of a sparse kernel
     gather_scale=0.241937,    # an x sector / the index_select element price
@@ -81,7 +81,6 @@ DEVICE_MODEL: Dict[str, float] = dict(
 
 RAILS = ("cuda", "binned", "colsort", "colsort2", "routed")
 SECTOR_ROWS, SECTOR_COLS = 32, 8      # a warp's rows; a 32-byte sector of f32 x
-TILE = 128 * 128                      # the take probe's gathers a tile pass
 AHEAD = 4                             # chunks of 32 a long row's warp loads ahead
 _calibration_checked = False
 
@@ -271,23 +270,12 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     return out
 
 
-def _gathers(row, col, m, n) -> Tuple[int, int, int]:
-    """(x sectors the pattern touches, entries whose x the routed plan
-    stages in shared memory, staged columns over all row blocks), the plan
-    taken for f32 x at ROUTED_BLOCK rows a block and ROUTED_WINDOW."""
-    r = row.astype(np.int64)
-    c = col.astype(np.int64)
-    nsec = -(-n // SECTOR_COLS)
-    sectors = int(np.unique((r // SECTOR_ROWS) * nsec + c // SECTOR_COLS).size)
-    lengths = np.bincount(r, minlength=m)
-    cap = auto_hub_cap(r.size, m)
-    short = (lengths <= min(SHORT_ROW, cap))[r]
-    span_lo, span_len = plan_spans(r[short], c[short], m, n, ROUTED_BLOCK,
-                                   ROUTED_WINDOW, 4, r.size)
-    rb = r[short] // ROUTED_BLOCK
-    d = c[short] - span_lo[rb]
-    staged = int(np.count_nonzero((d >= 0) & (d < span_len[rb])))
-    return sectors, staged, int(span_len.sum())
+def _sectors(row, col) -> int:
+    """x sectors the pattern touches: distinct (32-row group, 8-column
+    group) pairs."""
+    key = (row.astype(np.int64) // SECTOR_ROWS) * (1 << 32) \
+        + col.astype(np.int64) // SECTOR_COLS
+    return int(np.unique(key).size)
 
 
 def features(A) -> Dict[str, Any]:
@@ -296,34 +284,30 @@ def features(A) -> Dict[str, Any]:
         row, col, (m, n) = _host_triplets(A)
         nnz = int(row.size)
         out = _rails(np.bincount(row, minlength=m), nnz, m)
-        out["sectors"], out["staged"], out["staged_cols"] = (
-            _gathers(row, col, m, n) if nnz else (0, 0, 0))
+        out["sectors"] = _sectors(row, col) if nnz else 0
         return out
     return _cached(A, "features", compute)
 
 
-def _rail_bytes(impl, m, n, nnz, v, staged_cols=0) -> float:
+def _rail_bytes(impl, m, n, nnz, v) -> float:
     base = nnz * (v + 4) + 4 * (m + 1) + (m + n) * v
     if impl == "binned":
         return base + 4 * m                        # the row permutation
     if impl == "colsort":
         return nnz * (v + 8) + (m + n) * v         # row ids
-    if impl == "routed":
-        return base + staged_cols * v              # the spans, copied from L2
     return base
 
 
-def _price(dev, kind, kernels, bytes_, sectors=0.0, slots=0, chain=0,
-           extra_us=0.0) -> float:
+def _price(dev, kind, kernels, bytes_, sectors=0.0, slots=0, chain=0) -> float:
     """µs of one launch plan: its launches, then the larger of its
     throughput time (bytes over eff_<kind> x the triad rate, x sectors,
-    lane-iterations, shared-memory takes) and the latency of its longest
-    thread's chain of dependent round trips (serial_dia_us a diagonal for
-    the DIA kernel, serial_us a round trip for the others)."""
+    lane-iterations) and the latency of its longest thread's chain of
+    dependent round trips (serial_dia_us a diagonal for the DIA kernel,
+    serial_us a round trip for the others)."""
     stream = dev["stream_gbps"] * 1e3                  # bytes a µs
     throughput = (bytes_ / (dev[f"eff_{kind}"] * stream)
                   + (sectors * dev["gather_scale"] * dev["gather_ns"]
-                     + slots * dev["lane_ns"]) * 1e-3 + extra_us)
+                     + slots * dev["lane_ns"]) * 1e-3)
     serial = chain * dev["serial_dia_us" if kind == "dia" else "serial_us"]
     return kernels * dev["launch_us"] + max(throughput, serial)
 
@@ -335,16 +319,10 @@ def rail_plans(st, f, v, dev):
     plans = []
     for impl in RAILS:
         for slots, kernels, chain, cfg in f[impl]:
-            sectors, cols, extra = f["sectors"], 0, 0.0
-            if impl == "routed" and f["staged"]:
-                # staged entries read x from shared memory; their sectors go
-                sectors = sectors * (1.0 - f["staged"] / max(nnz, 1))
-                extra = f["staged"] * dev["tile_take_ns"] / TILE * 1e-3
-                cols = f["staged_cols"]
             plans.append((cfg, dict(kind=impl, kernels=kernels,
-                                    bytes_=_rail_bytes(impl, m, n, nnz, v, cols),
-                                    sectors=sectors, slots=slots, chain=chain,
-                                    extra_us=extra)))
+                                    bytes_=_rail_bytes(impl, m, n, nnz, v),
+                                    sectors=f["sectors"], slots=slots,
+                                    chain=chain)))
     return plans
 
 

@@ -9,7 +9,8 @@ axes' (vrow_planes, vrow_len)) on each matrix of `matrices()` as the tuner
 times a walk (a CUDA graph's replay: device time), and fits the model's
 free constants (FITTED) to those times by bounded least squares on the log
 of model / measured (cost_model._price defines the price of a plan).  It
-prints every measurement beside the fitted prediction, the fitted model's
+prints the shipped constants' model / measured over those plans, every
+measurement beside the fitted prediction, the fitted model's
 pick on each matrix against the fastest plan timed, and, last, the
 constants as a DEVICE_MODEL update.
 It needs one CUDA card; on a machine without one it exits at once.
@@ -150,6 +151,7 @@ def main():
     lo = [BOUNDS.get(k, (0.01, 1.0))[0] for k in FITTED]
     hi = [BOUNDS.get(k, (0.01, 1.0))[1] for k in FITTED]
     start = np.clip([dev[k] for k in FITTED], lo, hi)
+    _summary("shipped", model(start) / times)
     # relative error on a log scale: a 2x miss on a 3 µs plan weighs as much
     # as one on a 300 µs plan
     fit = least_squares(lambda th: np.log(model(th) / times), start,
@@ -167,12 +169,18 @@ def main():
         best = min(mine, key=lambda r: r[1])
         print(f"    pick {name:32s} {_label(pick[2]):16s} {pick[1]:9.2f} us; fastest "
               f"{_label(best[2]):16s} {best[1]:9.2f} us ({pick[1] / best[1]:.2f}x)")
-    print(f"fit: {len(times)} plans, model/measured median {np.median(ratio):.3f}, "
-          f"quartiles {np.percentile(ratio, 25):.3f} {np.percentile(ratio, 75):.3f}, "
-          f"extremes {ratio.min():.3f} {ratio.max():.3f}", flush=True)
+    _summary("fit", ratio)
     measured = {k: v for k, v in consts.items() if k in cost_model.DEVICE_MODEL}
     print("DEVICE_MODEL.update(" + json.dumps(
         {**measured, **{k: float(f"{v:.6g}") for k, v in fitted.items()}}) + ")")
+
+
+def _summary(tag, ratio):
+    """One line of model / measured over the plans: median, quartiles,
+    extremes."""
+    print(f"{tag}: {ratio.size} plans, model/measured median {np.median(ratio):.3f}, "
+          f"quartiles {np.percentile(ratio, 25):.3f} {np.percentile(ratio, 75):.3f}, "
+          f"extremes {ratio.min():.3f} {ratio.max():.3f}", flush=True)
 
 
 def _label(cfg):

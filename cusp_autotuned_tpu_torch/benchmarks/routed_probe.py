@@ -8,15 +8,11 @@ the JAX repository's benchmarks/routed_probe.py.)
 kernel `csrc/routed_probe.cu` (replacing the Pallas probe _probe_kernel,
 routed_probe.py:44, launched at :116) is the shipped routed SpMV's row
 walk (`csrc/rail_rows.cuh`, the body routed_spmv_kernel runs) with its
-stages taken away one at a time, on the shipped plan (kernels/routed.py:
-build_routed, plan_spans):
+parts taken away one at a time, on the shipped plan (kernels/routed.py:
+build_routed):
 
   full       the shipped body and the colsort2 hub pair: equal to
              routed_spmv bit for bit
-  nostage    no span staged, every entry read from x through L2 (the
-             same sum, in the same order: equal to full bit for bit)
-  stageonly  only the entries whose column lies in their row block's
-             staged span: wrong on purpose
   nohub      the shipped body without the hub pair (hub rows 0)
   loads      y[r] = sum of val + 1e-30 col over the row: values and
              indices streamed, x not read (the JAX loads, :65-66), hub
@@ -24,12 +20,12 @@ build_routed, plan_spans):
 
 each on two plans: the default (16,384-column windows, 256 rows a block)
 and 4096-column windows over 512 rows a block.  The JAX stages were the
-TPU's in-lane takes; the port's routed kernel has none.  The shipped
-build_routed is timed in f32 and in bf16 value storage; the JAX pack8 knob
-(int8 index planes) is a TPU workaround and has no counterpart.  Where the
-JAX probe printed its take passes and XLU bound, this one prints the plan's
-staged spans, the share of entries in them, the long rows (a warp each) and
-the tail's share.  Every row is timed with its working set out of L2
+TPU's in-lane takes; the port's routed kernel has none, and reads every x
+through L1/L2.  The shipped build_routed is timed in f32 and in bf16 value
+storage; the JAX pack8 knob (int8 index planes) is a TPU workaround and
+has no counterpart.  Where the JAX probe printed its take passes and XLU
+bound, this one prints the plan's long rows (a warp each) and the tail's
+share.  Every row is timed with its working set out of L2
 (harness.time_cold: Economics' 14 MB and LP's 23 MB fit in the 50 MB L2).
 """
 
@@ -41,75 +37,57 @@ import numpy as np
 import torch
 
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.kernels.colsort2 import SHORT_ROW, colsort2_hub, hub_plain
+from cusp_autotuned_tpu_torch.kernels.colsort2 import colsort2_hub, hub_plain
 from cusp_autotuned_tpu_torch.kernels.routed import _check, build_routed
 from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 
-MODES = ("full", "nostage", "stageonly", "nohub", "loads")
-HUB_MODES = ("full", "nostage", "stageonly")      # modes that launch the hub pair
+MODES = ("full", "nohub", "loads")     # in the order of rail_rows.cuh's Mode
 SUITE_SCALE = 2.0
 # the default plan (16,384-column windows, 256 rows a block), and
 # 4096-column windows over 512 rows a block
 CONFIGS = ({"block_size": 256}, {"window": 4096, "block_size": 512})
 
 
-def staged_mask(arrays, num_rows, thr, block):
-    """(row of each entry, is the entry staged: its row is a short row, of
-    at most min(SHORT_ROW, thr) entries, and its column lies in the span its
-    row block stages)."""
-    indptr, col = arrays["indptr"], arrays["col"]
-    span_lo, span_len = (t.long() for t in arrays["spans"])
-    lengths = torch.diff(indptr).long()
-    row = torch.repeat_interleave(torch.arange(num_rows, device=col.device), lengths)
-    rb = row // block
-    d = col[:row.numel()].long() - span_lo[rb]
-    short = lengths[row] <= min(SHORT_ROW, thr)
-    return row, short & (d >= 0) & (d < span_len[rb])
-
-
-def routed_probe_plain(arrays, x, shape, thr, mode, block):
+def routed_probe_plain(arrays, x, shape, thr, mode):
     """The probe's function in PyTorch, on routed plan `arrays`."""
     if mode not in MODES:
         raise InvalidInputException(f"no routed probe mode {mode!r} (modes {MODES})")
     m, n = shape
-    col, val = arrays["col"], arrays["val"]
-    row, staged = staged_mask(arrays, m, thr, block)
-    own = torch.diff(arrays["indptr"]).long()[row] <= thr
+    indptr, col, val = arrays["indptr"], arrays["col"], arrays["val"]
+    lengths = torch.diff(indptr).long()
+    row = torch.repeat_interleave(torch.arange(m, device=col.device), lengths)
+    own = lengths[row] <= thr
     nnz = row.numel()
     if mode == "loads":
         terms = val[:nnz] + 1e-30 * col[:nnz].to(val.dtype)
     else:
         terms = val[:nnz] * torch.index_select(x, 0, col[:nnz])
-    keep = own & staged if mode == "stageonly" else own
-    y = x.new_zeros(m).index_add_(0, row[keep], terms[keep])
-    return hub_plain(col, val, arrays["hub"], x, y) if mode in HUB_MODES else y
+    y = x.new_zeros(m).index_add_(0, row[own], terms[own])
+    return hub_plain(col, val, arrays["hub"], x, y) if mode == "full" else y
 
 
-def routed_probe(arrays, x, shape, thr, max_span, mode, block=_build.DEFAULT_BLOCK):
+def routed_probe(arrays, x, shape, thr, mode, block=_build.DEFAULT_BLOCK):
     """y of the probe `mode` through the routed plan `arrays` (build_routed's
-    with f32 values, planned for `block` rows a block; max_span its longest
-    staged span).  On CPU tensors this is the plain version; on CUDA tensors
-    it launches routed_probe_kernel and, for full, nostage and stageonly,
-    the colsort2 hub pair into the same y, and raises on what the kernels
-    do not take."""
+    with f32 values, launched in blocks of `block` threads).  On CPU tensors
+    this is the plain version; on CUDA tensors it launches
+    routed_probe_kernel and, for full, the colsort2 hub pair into the same
+    y, and raises on what the kernels do not take."""
     if mode not in MODES:
         raise InvalidInputException(f"no routed probe mode {mode!r} (modes {MODES})")
     a = arrays
     m, n = shape
     if x.device.type == "cpu" and a["val"].device.type == "cpu":
-        return routed_probe_plain(a, x, shape, thr, mode, block)
-    _check(a["indptr"], a["col"], a["val"], a["hub"], (a["long"], *a["spans"]),
-           x, shape, 1)
+        return routed_probe_plain(a, x, shape, thr, mode)
+    _check(a["indptr"], a["col"], a["val"], a["hub"], (a["long"],), x, shape, 1)
     if a["val"].dtype != torch.float32:
         raise InvalidInputException("routed probe takes f32 values")
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_routed_probe", torch.float32, x.device, a["indptr"],
                       a["col"], a["val"], x, y, m, thr, a["long"],
-                      a["long"].numel(), *a["spans"], max_span,
-                      MODES.index(mode), block)
+                      a["long"].numel(), MODES.index(mode), block)
         routed_probe.launches += 1
-        if mode in HUB_MODES:
+        if mode == "full":
             colsort2_hub(a["col"], a["val"], a["hub"], x, y, block)
     return y
 
@@ -120,23 +98,19 @@ routed_probe.launches = 0
 def build_probe(A, config, mode):
     """(fn(x) -> y, info) for A under the probe `mode`, on the shipped plan
     build_routed(A, config) in f32; info holds the plan's rows, entries,
-    staged spans, staged entries' share, long rows and tail share."""
+    long rows and tail share."""
     if mode not in MODES:
         raise InvalidInputException(f"no routed probe mode {mode!r} (modes {MODES})")
     shipped = build_routed(A, {**config, "value_dtype": 0})
     arrays, st = shipped.planned_arrays, shipped.plan_stats
     block = _build.block_size(config)
-    thr, window, max_span = st["hub_cap"], st["window"], st["max_span"]
-    m, n = A.shape
-    _, staged = staged_mask(arrays, m, thr, block)
+    thr = st["hub_cap"]
 
     def fn(x):
-        return routed_probe(arrays, x, A.shape, thr, max_span, mode, block)
+        return routed_probe(arrays, x, A.shape, thr, mode, block)
 
-    info = {"rows": m, "cols": n, "nnz": st["nnz"], "window": window,
-            "hub_cap": thr, "staged_spans": st["staged_spans"],
-            "max_span": max_span, "long_rows": st["long_rows"],
-            "staged_share": float(staged.float().mean()) if staged.numel() else 0.0,
+    info = {"rows": A.shape[0], "cols": A.shape[1], "nnz": st["nnz"],
+            "window": st["window"], "hub_cap": thr, "long_rows": st["long_rows"],
             "tail_share": st["tail"] / max(st["nnz"], 1)}
     fn.planned_arrays = arrays
     return fn, info
@@ -197,8 +171,6 @@ def main(argv=None, stream_gbps=None):
                 print(f"routed_probe: {name} (williams_suite({SUITE_SCALE})) "
                       f"{info['rows']} x {info['cols']}, {info['nnz']} entries; "
                       f"{tag}: window {info['window']}, hub_cap {info['hub_cap']}, "
-                      f"{info['staged_spans']} staged spans holding "
-                      f"{100 * info['staged_share']:.1f} % of the entries, "
                       f"{info['long_rows']} long rows, tail "
                       f"{100 * info['tail_share']:.1f} %; useful {useful / 1e6:.1f} "
                       f"MB, bound {useful / stream_gbps / 1e6:.4f} ms at the "

@@ -3,6 +3,8 @@ the colsort2 and routed kernels against cuSPARSE on the card, with every
 working set out of L2.
 
     python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles [--sweep] [--rails]
+    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles --turns N \
+        [--against TREE] "MATRIX|PLAN[|PLAN]" ...
 
 The matrices are those of `PERF.md` rows 4, 6, 7, 8 and 12: poisson5pt
 1000x1000 f32, the skewed 1M-row matrix (Pareto row lengths of 1 to 4096,
@@ -28,10 +30,21 @@ file it times an older tree of the package as well (put that tree first on
 PYTHONPATH).  The last line is a JSON record of every row.  Needs one CUDA
 card.  chip_smoke.py takes its skewed matrix and its L2-cold lines from
 here.
+
+`--turns N` times pairs of plans in N rounds, L2-cold device ms (a graph's
+replay) of each, the order swapped each round, and prints each pair's
+medians and the rounds the second plan won.  "MATRIX|A|B" pairs plans A
+and B of this tree; "MATRIX|A" pairs plan A of the package tree at
+`--against TREE` (a checkout's root, imported beside this one) with plan A
+of this tree.  MATRIX is a name of `matrices()`, an entry of
+williams_suite(2.0), or "NAME, rows of at most T" (NAME's rows longer than
+T emptied: a plan's main rows alone); PLAN a label of `plans(sweep=True)`
+or of TURN_PLANS.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -59,6 +72,9 @@ ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
       "colsort": ("poisson5pt 1000x1000", "skewed 1M", f"skewed 1M band 0 of {BANDS}",
                   "1M rows, the last 4096 full"),
       "colsort2": RAIL_MATRICES, "routed": RAIL_MATRICES}
+# plans that only --turns times
+TURN_PLANS = {"routed window=4096 block=512": ("routed", {"window": 4096,
+                                                          "block_size": 512})}
 
 
 def skewed(n, seed, device, rows=None):
@@ -90,17 +106,121 @@ def leading_gap(n, rows, per_row, seed, device):
     return csr_matrix(indptr, col, val, (n, n), device=device)
 
 
-def matrices(device):
+def matrices(device, only=None):
+    """(name, f32 CSR) of the timed matrices; with `only`, that one alone."""
     from cusp_autotuned_tpu_torch import gallery
     from cusp_autotuned_tpu_torch.backend.reference import from_scipy
     n = 1_000_000
-    yield "poisson5pt 1000x1000", gallery.poisson5pt(1000, 1000, format="csr",
-                                                     device=device)
-    yield "skewed 1M", skewed(n, 2, device)
-    yield f"skewed 1M band 0 of {BANDS}", skewed(n, 2, device, -(-n // BANDS))
-    for name, S in gallery.williams_suite(2.0, names=("Economics", "LP")).items():
-        yield name, from_scipy(S, "csr", dtype=torch.float32, device=device)
-    yield "1M rows, the last 4096 full", leading_gap(n, 4096, 8, 3, device)
+    make = {
+        "poisson5pt 1000x1000": lambda: gallery.poisson5pt(1000, 1000, format="csr",
+                                                           device=device),
+        "skewed 1M": lambda: skewed(n, 2, device),
+        f"skewed 1M band 0 of {BANDS}": lambda: skewed(n, 2, device, -(-n // BANDS)),
+        "Economics": None, "LP": None,
+        "1M rows, the last 4096 full": lambda: leading_gap(n, 4096, 8, 3, device)}
+    for name, build in make.items():
+        if only not in (None, name):
+            continue
+        if build is None:
+            S = gallery.williams_suite(2.0, names=(name,))[name]
+            yield name, from_scipy(S, "csr", dtype=torch.float32, device=device)
+        else:
+            yield name, build()
+
+
+def short_rows(S, cut):
+    """The scipy CSR matrix S with its rows of more than `cut` entries
+    emptied."""
+    lengths = np.diff(S.indptr)
+    kept = np.where(lengths <= cut, lengths, 0)
+    mask = np.repeat(kept > 0, lengths)
+    return type(S)((S.data[mask], S.indices[mask], np.r_[0, np.cumsum(kept)]),
+                   shape=S.shape)
+
+
+def matrix(name, device):
+    """The matrix `name` (see the module's docstring) as an f32 CSR."""
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy, to_scipy
+    from cusp_autotuned_tpu_torch.gallery.suite import williams_suite
+    base, _, cut = name.partition(", rows of at most ")
+    if cut:
+        S = short_rows(to_scipy(matrix(base, device)).tocsr(), int(cut))
+        return from_scipy(S, "csr", dtype=torch.float32, device=device)
+    for _, A in matrices(device, only=base):
+        return A
+    S = williams_suite(2.0, names=(base,))[base]
+    return from_scipy(S, "csr", dtype=torch.float32, device=device)
+
+
+def tree_builders(tree):
+    """BUILDERS of the package at `tree`, imported beside this one: its
+    modules load under the package's own name while this tree's are set
+    aside, and trade places with them after."""
+    pkg = harness.__name__.split(".")[0]
+
+    def take():
+        return {k: sys.modules.pop(k) for k in list(sys.modules)
+                if k == pkg or k.startswith(pkg + ".")}
+
+    mine = take()
+    sys.path.insert(0, str(tree))
+    try:
+        k = {m: importlib.import_module(f"{pkg}.kernels.{m}")
+             for m in ("csr", "colsort", "colsort2", "routed")}
+        return {"cuda": k["csr"].build_csr, "colsort": k["colsort"].build_colsort,
+                "colsort2": k["colsort2"].build_colsort2,
+                "routed": k["routed"].build_routed}
+    finally:
+        sys.path.remove(str(tree))
+        take()
+        sys.modules.update(mine)
+
+
+def turns(pairs, rounds, against=None):
+    """For each "MATRIX|A[|B]" of `pairs`, the device ms of its two plans,
+    L2-cold, in `rounds` rounds, the order swapped each round; printed with
+    the medians and B's wins, and returned as rows."""
+    device = torch.device("cuda")
+    other = tree_builders(against) if against else None
+    labels = {label: (impl, cfg) for label, impl, cfg in plans(True)}
+    labels.update(TURN_PLANS)
+    rows = []
+    for spec in pairs:
+        name, *pl = spec.split("|")
+        A = matrix(name, device)
+        x = torch.from_numpy(np.random.RandomState(4).randn(A.num_cols)
+                             .astype(np.float32)).to(device)
+        nbytes = A.nnz * 8 + (2 * A.num_rows + 1 + A.num_cols) * 4
+        (ia, ca), (ib, cb) = labels[pl[0]], labels[pl[-1]]
+        fns = [(other[ia] if len(pl) == 1 else BUILDERS[ia])(A, ca), BUILDERS[ib](A, cb)]
+        tags = [f"{against} {pl[0]}" if len(pl) == 1 else pl[0], pl[-1]]
+        ref = fns[0](x)
+        same = bool(torch.equal(ref, fns[1](x)))
+        calls = []
+        for fn in fns:
+            def build(i, fn=fn):
+                if i == 0:
+                    return fn, (x,)
+                return fn.apply, (harness.fresh(fn.planned_arrays), x.clone())
+            call, copies = harness.cold_call(build, nbytes, device)
+            calls.append((call, copies * -(-harness.REPEATS // copies)))
+        ms = [[], []]
+        for r in range(rounds):
+            for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+                call, repeats = calls[k]
+                ms[k].append(harness.graph_time_s(call, repeats=repeats,
+                                                  device=device) * 1e3)
+        wins = sum(b < a for a, b in zip(*ms))
+        print(f"turns {name}: A = {tags[0]}, B = {tags[1]}; y equal bit for bit: "
+              f"{same}\n  A " + " ".join(f"{t:.4f}" for t in ms[0])
+              + "\n  B " + " ".join(f"{t:.4f}" for t in ms[1])
+              + f"\n  median A {np.median(ms[0]):.4f} ms, B {np.median(ms[1]):.4f} ms "
+              f"device; B faster in {wins} of {rounds} rounds", flush=True)
+        rows.append({"matrix": name, "a": tags[0], "b": tags[1], "a_ms": ms[0],
+                     "b_ms": ms[1], "b_wins": wins, "bitwise_equal": same})
+        del A, x, fns, calls, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernels_a_call(fn, x):
@@ -160,6 +280,16 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"spmv_tiles: {card}; torch {torch.__version__}", flush=True)
+    if "--turns" in argv:
+        i = argv.index("--turns")
+        rounds, rest = int(argv[i + 1]), argv[:i] + argv[i + 2:]
+        against = None
+        if "--against" in rest:
+            j = rest.index("--against")
+            against, rest = rest[j + 1], rest[:j] + rest[j + 2:]
+        rows = turns(rest, rounds, against)
+        print(json.dumps({"card": card, "turns": rows}), flush=True)
+        return rows
     sweep, rails_only = "--sweep" in argv, "--rails" in argv
     timed = list(plans(sweep, rails_only))
     rows = []

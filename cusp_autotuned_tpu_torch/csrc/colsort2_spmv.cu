@@ -51,9 +51,9 @@ __global__ void colsort2_main_kernel(const int* __restrict__ indptr,
                                      const int* __restrict__ long_rows,
                                      int n_long, int short_blocks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  rail::rows_body<rail::kNoStage, false, Store, Acc>(
+  rail::rows_body<rail::kFullMode, Store, Acc>(
       indptr, col, val, x, y, m, thr, kOnePlane ? rail::kNoPlanes : V, long_rows,
-      n_long, short_blocks, nullptr, nullptr, reinterpret_cast<Acc*>(smem_raw));
+      n_long, short_blocks, reinterpret_cast<Acc*>(smem_raw));
 }
 
 // one warp per hub virtual row: part[v] = sum of entries [lo[v], hi[v])

@@ -1,6 +1,6 @@
 // The row walk that the colsort2 and routed SpMV kernels share
 // (colsort2_spmv.cu, routed_spmv.cu) and that the routed probe takes apart
-// stage by stage (routed_probe.cu): y[r] = sum of val[e] * x[col[e]] over
+// (routed_probe.cu): y[r] = sum of val[e] * x[col[e]] over
 // row r's entries, for the rows of at most thr entries.
 //
 // Every lane works on entries, whatever the rows' lengths, and every row's
@@ -26,13 +26,9 @@
 //   * colsort2's planes: a row's entries [k V, (k + 1) V) form plane k.
 //     The lane or the warp closes a plane's sum where the plane ends and
 //     adds the plane sums in order 0, 1, ..., the counterpart of the JAX
-//     reshape(K, m).sum(0).  routed passes V = kNoPlanes: one plane;
-//   * routed's staged span: where the plan stages a span of x for a block
-//     of rows, the short rows' entries whose column lies in it read x from
-//     shared memory (the block copies the span in first, between no other
-//     barrier), the rest through L2.  Where x comes from does not change
-//     the sum.  A block with nothing staged passes no barrier at all, and
-//     tests no column against a span.
+//     reshape(K, m).sum(0).  routed passes V = kNoPlanes: one plane.
+//
+// Every x is read through L1/L2 (__ldg); no block meets at a barrier.
 //
 // Rows above thr (hub rows) are written by the colsort2 hub pair; each
 // other row of y is written here exactly once, by its lane or its warp's
@@ -51,32 +47,22 @@ constexpr int kNoPlanes = INT_MAX;        // routed: a row is one plane
 constexpr int kAhead = 4;                 // chunks of 32 a warp loads ahead
 constexpr int kSlots = 32 * kAhead;       // a warp's product slots in shared memory
 
-// What the walk does: the shipped kernels use kFullMode (routed) and
-// kNoStage (colsort2, which stages nothing); the routed probe takes each in
-// turn.
+// What the walk does: the shipped kernels use kFullMode; the routed probe
+// takes each in turn.
 enum Mode {
-  kFullMode = 0,    // x from the staged span where it covers the column
-  kNoStage = 1,     // every x through L2
-  kStageOnly = 2,   // only the staged entries are added; wrong on purpose
-  kNoHub = 3,       // as kFullMode; the hub rows of y written 0 here
-  kLoads = 4,       // val + 1e-30 col summed, x not read; hub rows 0
+  kFullMode = 0,    // the shipped walk
+  kNoHub = 1,       // as kFullMode; the hub rows of y written 0 here
+  kLoads = 2,       // val + 1e-30 col summed, x not read; hub rows 0
 };
 
-// One entry's term.  xs holds x[lo, lo + len) (len 0: nothing staged);
-// kStaged false: the block staged nothing, and every x is read through L2.
-template <int M, bool kStaged, typename Store, typename Acc>
+// One entry's term.
+template <int M, typename Store, typename Acc>
 __device__ __forceinline__ Acc term(const int* __restrict__ col,
                                     const Store* __restrict__ val,
-                                    const Acc* __restrict__ x, const Acc* xs,
-                                    int lo, int len, int e) {
+                                    const Acc* __restrict__ x, int e) {
   const int c = col[e];
   if (M == kLoads) return to_acc<Acc>(val[e]) + Acc(1e-30) * static_cast<Acc>(c);
-  if (M == kNoStage || (M != kStageOnly && !kStaged))
-    return to_acc<Acc>(val[e]) * __ldg(x + c);
-  const unsigned d = static_cast<unsigned>(c - lo);
-  const bool staged = d < static_cast<unsigned>(len);
-  if (M == kStageOnly) return staged ? to_acc<Acc>(val[e]) * xs[d] : Acc(0);
-  return to_acc<Acc>(val[e]) * (staged ? xs[d] : __ldg(x + c));
+  return to_acc<Acc>(val[e]) * __ldg(x + c);
 }
 
 // Lane 0 gets the sum of the warp's 32 values, by a fixed tree.
@@ -88,12 +74,12 @@ __device__ __forceinline__ Acc warp_sum(Acc v) {
 
 // The short rows among the warp's rows r0 .. r0 + 31 (r0 < m); buf is the
 // warp's kSlots slots of shared memory.  lim = min(kShort, thr).
-template <int M, bool kStaged, typename Store, typename Acc>
+template <int M, typename Store, typename Acc>
 __device__ __forceinline__ void short_rows(
     const int* __restrict__ indptr, const int* __restrict__ col,
     const Store* __restrict__ val, const Acc* __restrict__ x,
     Acc* __restrict__ y, int m, long long r0, int lim, int thr, int V,
-    const Acc* xs, int lo, int len, Acc* buf) {
+    Acc* buf) {
   const int lane = threadIdx.x & 31;
   const long long r = r0 + lane;
   int s = 0, L = 0;
@@ -126,7 +112,7 @@ __device__ __forceinline__ void short_rows(
           if (__shfl_sync(kFull, start, j + step) <= i) j += step;
         e = __shfl_sync(kFull, s, j) + (i - __shfl_sync(kFull, start, j));
       }
-      p[u] = i < total ? term<M, kStaged, Store, Acc>(col, val, x, xs, lo, len, e)
+      p[u] = i < total ? term<M, Store, Acc>(col, val, x, e)
                        : Acc(0);
     }
 #pragma unroll
@@ -163,7 +149,7 @@ __device__ __forceinline__ void long_row(const int* __restrict__ indptr,
   if (V >= L) {                           // one plane: the same sums, a plain loop
 #pragma unroll 4
     for (int p = lane; p < L; p += 32)
-      acc += term<M, false, Store, Acc>(col, val, x, nullptr, 0, 0, s + p);
+      acc += term<M, Store, Acc>(col, val, x, s + p);
     total = warp_sum(acc);
     if (lane == 0) y[r] = total;
     return;
@@ -174,7 +160,7 @@ __device__ __forceinline__ void long_row(const int* __restrict__ indptr,
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
       const int p = c0 + 32 * u + lane;
-      v[u] = p < L ? term<M, false, Store, Acc>(col, val, x, nullptr, 0, 0, s + p)
+      v[u] = p < L ? term<M, Store, Acc>(col, val, x, s + p)
                    : Acc(0);
     }
 #pragma unroll
@@ -199,40 +185,22 @@ __device__ __forceinline__ void long_row(const int* __restrict__ indptr,
 }
 
 // The whole kernel body: blocks [0, short_blocks) walk the rows, a warp
-// each 32 rows, block b rows [b B, (b + 1) B) with the span
-// span_lo[b] .. + span_len[b] of x staged where kStage (a plan that stages
-// nothing launches the instantiation without, which holds fewer registers);
-// later blocks give each listed long row a warp.  smem: kAhead * B slots,
-// then the span.
-template <int M, bool kStage, typename Store, typename Acc>
+// each 32 rows, block b rows [b B, (b + 1) B); later blocks give each
+// listed long row a warp.  smem: kAhead * B product slots.
+template <int M, typename Store, typename Acc>
 __device__ __forceinline__ void rows_body(
     const int* __restrict__ indptr, const int* __restrict__ col,
     const Store* __restrict__ val, const Acc* __restrict__ x,
     Acc* __restrict__ y, int m, int thr, int V,
     const int* __restrict__ long_rows, int n_long, int short_blocks,
-    const int* __restrict__ span_lo, const int* __restrict__ span_len,
     Acc* smem) {
   const int warp0 = threadIdx.x & ~31;
   if (static_cast<int>(blockIdx.x) < short_blocks) {
-    Acc* xs = smem + kAhead * blockDim.x;
-    int lo = 0, len = 0;
-    if (kStage && M != kNoStage && M != kLoads) {
-      lo = span_lo[blockIdx.x];
-      len = span_len[blockIdx.x];
-      if (len > 0) {                      // the same for the whole block
-        for (int i = threadIdx.x; i < len; i += blockDim.x) xs[i] = x[lo + i];
-        __syncthreads();
-      }
-    }
     const long long r0 = static_cast<long long>(blockIdx.x) * blockDim.x + warp0;
     const int lim = thr < kShort ? thr : kShort;
-    if (r0 >= m) return;
-    if (kStage && len > 0)                // the same for the whole block
-      short_rows<M, kStage, Store, Acc>(indptr, col, val, x, y, m, r0, lim, thr, V,
-                                      xs, lo, len, smem + kAhead * warp0);
-    else
-      short_rows<M, false, Store, Acc>(indptr, col, val, x, y, m, r0, lim, thr,
-                                       V, xs, lo, len, smem + kAhead * warp0);
+    if (r0 < m)
+      short_rows<M, Store, Acc>(indptr, col, val, x, y, m, r0, lim, thr, V,
+                                smem + kAhead * warp0);
   } else {
     const long long w =
         static_cast<long long>(blockIdx.x - short_blocks) * (blockDim.x >> 5) +

@@ -77,10 +77,9 @@ _SIGNATURES = {
     # col, val, X, lo, hi, nv, rows, ptr, nh, part, Y, k, block, stream
     "cusp_colsort2_hub_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32,
                                 _vp, _vp, _i32, _i32, _vp), _TYPED),
-    # indptr, col, val, x, y, m, thr, long_rows, n_long, span_lo, span_len,
-    # max_span, block, stream
-    "cusp_routed_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp,
-                          _vp, _i32, _i32, _vp), _TYPED),
+    # indptr, col, val, x, y, m, thr, long_rows, n_long, block, stream
+    "cusp_routed_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
+                          _vp), _TYPED),
     # indptr, col, val, X, Y, m, n, k, thr, win_ptr, win_ids, Ws, block, stream
     "cusp_routed_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp,
                           _vp, _i32, _i32, _vp), _TYPED),
@@ -96,10 +95,9 @@ _SIGNATURES = {
     # data, offsets, ndiag, pitch, X, Y, m, n, k, mode, team, block, stream
     "cusp_dia_spmm_probe": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32,
                              _i32, _i32, _i32, _vp), ("f32",)),
-    # indptr, col, val, x, y, m, thr, long_rows, n_long, span_lo, span_len,
-    # max_span, mode, block, stream
-    "cusp_routed_probe": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp,
-                           _vp, _i32, _i32, _i32, _vp), ("f32",)),
+    # indptr, col, val, x, y, m, thr, long_rows, n_long, mode, block, stream
+    "cusp_routed_probe": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
+                           _i32, _vp), ("f32",)),
 }
 
 

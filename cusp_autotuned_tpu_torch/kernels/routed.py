@@ -1,6 +1,6 @@
-"""Windowed CSR SpMV and SpMM with x staged in shared memory: the CUDA
-kernels' wrappers, their plain PyTorch version, and the planner (the port's
-`routed` impl).
+"""Routed CSR SpMV and SpMM (the SpMM with X staged in shared memory by
+column window): the CUDA kernels' wrappers, their plain PyTorch version,
+and the planner (the port's `routed` impl).
 
 Replaces the JAX package's routed Pallas kernel, `_routed_kernel`
 (cusp_autotuned_tpu/kernels/pallas_routed.py:426), at its SpMV site (:661)
@@ -9,11 +9,9 @@ with `csrc/routed_spmv.cu` and at its SpMM site (:709) with
 windows with in-lane takes.  Here the SpMV kernel walks the rows as
 `csrc/rail_rows.cuh` says (a lane a row of at most SHORT_ROW entries, the
 warp's lanes loading the entries together, a warp for each longer row of
-`long_rows`), and stages in shared memory at most one span of x for each
-block of `block_size` rows: the part of one window of `window` columns
-that the block's short rows read densely, where copying it pays
-(`plan_spans`); every other entry reads x through L2, in the same ordered
-pass.  The SpMM kernel keeps the first design: a thread a row, with each
+`long_rows`) and reads every x through L1/L2: staging x in shared memory
+lost to that on every matrix measured, so `window` shapes the SpMM plan
+alone.  The SpMM kernel keeps the first design: a thread a row, with each
 SpMM window that holds at least window / 8 of the row block's entries
 staged (`plan_windows`).  Rows longer than hub_cap (the JAX default
 max(64, 4 nnz / m)) form the tail, served by the colsort2 hub kernels
@@ -31,7 +29,7 @@ import torch
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
 from cusp_autotuned_tpu_torch.kernels.colsort2 import (
-    SHORT_ROW, auto_hub_cap, colsort2_hub, hub_plain, hub_tensors, long_rows,
+    auto_hub_cap, colsort2_hub, hub_plain, hub_tensors, long_rows,
     plan_hub,
 )
 from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
@@ -40,21 +38,10 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
 )
 
-WINDOW = 16384                     # columns of an SpMV window: 64 KB of f32 x
+WINDOW = 16384                     # columns of a window: 64 KB of f32 x
 WINDOWS = (4096, 8192, 16384)      # the `window` axis: 16-64 KB of f32 x
 STAGE_MIN_FILL = 1 / 8             # SpMM: stage a window holding >= window / 8 entries
 MAX_TAIL = 0.5                     # the JAX rail's refusal: tail > half the entries
-# SpMV: a span of x is staged where the row block's short rows touch at
-# least STAGE_SECTOR_FILL of its 32-byte sectors and read each touched
-# sector STAGE_REUSE times on average; it runs between the first and the
-# last dense chunk of STAGE_CHUNK sectors (one that passes the same test)
-SECTOR_BYTES = 32
-STAGE_SECTOR_FILL = 1 / 2
-STAGE_REUSE = 2
-STAGE_CHUNK = 32
-# and only where the spans hold at least STAGE_MIN_SHARE of all entries: a
-# plan with a span launches the kernel with the staging code in every block
-STAGE_MIN_SHARE = 1 / 8
 
 
 def spmm_window(window, acc_dtype):
@@ -81,87 +68,6 @@ def plan_windows(row_of, col, m, n, rows_per_block, window):
     return win_ptr, (cells % nw).astype(np.int32)
 
 
-def touched_sectors(row_of, col, n, rows_per_block, vbytes):
-    """(block, sector, entries) of each 32-byte sector of x that a block of
-    `rows_per_block` rows reads, sorted by block then sector (row_of, col:
-    the entries; x of `vbytes`-byte values)."""
-    spc = SECTOR_BYTES // vbytes
-    nsec = -(-n // spc)
-    key = (np.asarray(row_of, np.int64) // rows_per_block) * nsec \
-        + np.asarray(col, np.int64) // spc
-    sec, hits = np.unique(key, return_counts=True)
-    return sec // nsec, sec % nsec, hits
-
-
-def _groups(key):
-    """Start of each run of equal values in the sorted array key."""
-    return np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if key.size \
-        else np.zeros(0, np.int64)
-
-
-def _dense(touched, entries, sectors):
-    return (touched >= STAGE_SECTOR_FILL * sectors) & (entries >= STAGE_REUSE * touched)
-
-
-def plan_spans(row_of, col, m, n, rows_per_block, window, vbytes, nnz):
-    """(span_lo, span_len) int32, one a block of `rows_per_block` rows: the
-    columns of x that the SpMV kernel stages for the block (length 0:
-    none), from the entries its short rows walk (row_of, col) of the
-    matrix's nnz.  A chunk of
-    STAGE_CHUNK sectors is dense where the block touches at least
-    STAGE_SECTOR_FILL of its sectors and reads each touched one STAGE_REUSE
-    times on average; in the window of `window` columns whose dense chunks
-    hold the most entries, the span runs from the first to the last dense
-    chunk's touched sector, and is staged if the same test holds over the
-    whole span: the copy then loads at most 1 / STAGE_SECTOR_FILL times the
-    sectors that the gathers would, and saves the re-reads.  Nothing is
-    staged where the spans would hold under STAGE_MIN_SHARE of the nnz
-    entries."""
-    nrb = -(-m // rows_per_block)
-    span_lo = np.zeros(nrb, np.int32)
-    span_len = np.zeros(nrb, np.int32)
-    blk, sec, hits = touched_sectors(row_of, col, n, rows_per_block, vbytes)
-    if not blk.size:
-        return span_lo, span_len
-    spc = SECTOR_BYTES // vbytes
-    nsec = -(-n // spc)
-    nchunk = -(-nsec // STAGE_CHUNK)
-    per_win = window // spc
-    # the dense chunks
-    ckey = blk * nchunk + sec // STAGE_CHUNK
-    starts = _groups(ckey)
-    c_touched = np.diff(np.r_[starts, ckey.size])
-    c_entries = np.add.reduceat(hits, starts)
-    chunk = ckey[starts] % nchunk
-    cap = np.minimum(STAGE_CHUNK, nsec - chunk * STAGE_CHUNK)
-    dense = np.repeat(_dense(c_touched, c_entries, cap), c_touched)
-    if not dense.any():
-        return span_lo, span_len
-    # each (block, window)'s dense sectors: first, last and entries
-    d_blk, d_sec, d_hits = blk[dense], sec[dense], hits[dense]
-    wkey = d_blk * (-(-nsec // per_win)) + d_sec // per_win
-    starts = _groups(wkey)
-    ends = np.r_[starts[1:], wkey.size] - 1
-    w_blk, first, last = d_blk[starts], d_sec[starts], d_sec[ends]
-    w_entries = np.add.reduceat(d_hits, starts)
-    # each block's window with the most such entries (the first on a tie)
-    order = np.lexsort((-w_entries, w_blk))
-    best = order[_groups(w_blk[order])]
-    b, first, last = w_blk[best], first[best], last[best]
-    # the test over the whole span, every touched sector in it counted
-    key = blk * nsec + sec
-    lo = np.searchsorted(key, b * nsec + first)
-    hi = np.searchsorted(key, b * nsec + last, side="right")
-    csum = np.r_[0, np.cumsum(hits)]
-    ok = _dense(hi - lo, csum[hi] - csum[lo], last - first + 1)
-    if (csum[hi] - csum[lo])[ok].sum() < STAGE_MIN_SHARE * nnz:
-        return span_lo, span_len
-    b, first, last = b[ok], first[ok], last[ok]
-    span_lo[b] = first * spc
-    span_len[b] = np.minimum(n, (last + 1) * spc) - first * spc
-    return span_lo, span_len
-
-
 def routed_spmv_plain(indptr, col, val, hub, x, num_rows, thr):
     """The plan in PyTorch: each row of at most thr entries summed with a
     gather and an index_add_ (where x is read from does not change the
@@ -180,7 +86,7 @@ def routed_spmv_plain(indptr, col, val, hub, x, num_rows, thr):
 
 def _check(indptr, col, val, hub, plan, x, shape, rank):
     """Raise on what the kernels do not take (plan: the kernel's own index
-    tensors, the SpMV's long rows and spans or the SpMM's windows)."""
+    tensors, the SpMV's long rows or the SpMM's windows)."""
     m, n = shape
     tensors = (indptr, col, val, *hub, *plan)
     if not all(t.device == x.device for t in tensors) or x.device.type != "cuda":
@@ -203,11 +109,9 @@ def _check(indptr, col, val, hub, plan, x, shape, rank):
         raise InvalidInputException("routed kernel needs contiguous tensors")
 
 
-def routed_spmv(arrays, x, shape, thr, window, max_span,
-                block=_build.DEFAULT_BLOCK):
-    """y = A @ x through the routed plan `arrays` (build_routed's; max_span:
-    its longest staged span, plan_stats["max_span"]).  On CPU tensors this
-    is the plain version; on CUDA tensors it launches the routed kernel and,
+def routed_spmv(arrays, x, shape, thr, window, block=_build.DEFAULT_BLOCK):
+    """y = A @ x through the routed plan `arrays` (build_routed's).  On CPU
+    tensors this is the plain version; on CUDA tensors it launches the routed kernel and,
     where the plan has a tail, the colsort2 hub pair into the same y (a 2-D
     x goes to routed_spmm), and raises on what the kernels do not take."""
     if x.dim() == 2:
@@ -219,13 +123,12 @@ def routed_spmv(arrays, x, shape, thr, window, max_span,
     m, n = shape
     if x.device.type == "cpu" and a["val"].device.type == "cpu":
         return routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"], x, m, thr)
-    plan = (a["long"], *a["spans"])
-    _check(a["indptr"], a["col"], a["val"], a["hub"], plan, x, shape, 1)
+    _check(a["indptr"], a["col"], a["val"], a["hub"], (a["long"],), x, shape, 1)
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _build.launch("cusp_routed_spmv", a["val"].dtype, x.device, a["indptr"],
                       a["col"], a["val"], x, y, m, thr, a["long"],
-                      a["long"].numel(), *a["spans"], max_span, block)
+                      a["long"].numel(), block)
         routed_spmv.launches += 1
         colsort2_hub(a["col"], a["val"], a["hub"], x, y, block)
     return y
@@ -264,11 +167,10 @@ def build_routed(A, config):
     row in ascending order (other formats converted, unsorted rows sorted on
     the host), rows above hub_cap (0: max(64, 4 nnz / m), the JAX default)
     in the colsort2 tail, the rows of more than SHORT_ROW entries below it
-    listed for a warp each, windows of `window` columns (4096 to 16384,
-    default 16384) in which the SpMV kernel stages a span a block of
-    `block_size` rows (plan_spans), and SpMM windows of
-    spmm_window(window) rows of X listed per row block (plan_windows),
-    values in the storage dtype that `value_dtype` names.  The JAX
+    listed for a warp each, and SpMM windows of spmm_window(window) rows of
+    X (window: 4096 to 16384 columns, default 16384) listed per block of
+    `block_size` rows (plan_windows), values in the storage dtype that
+    `value_dtype` names.  The JAX
     builder's TPU keys (vrow_planes, vrow_span, win_group, pack8, pack16,
     stream_x, spmm_kb, scatter_dot and the tail_* keys) are ignored.  An
     empty matrix, or a tail of more than half the entries, raises
@@ -304,9 +206,6 @@ def build_routed(A, config):
         col = col[order]
     main = ~is_hub[row_of]
     acc = _build.STORAGE.get(A.val.dtype, (None, A.val.dtype))[1]
-    short = (lengths <= min(SHORT_ROW, hub_cap))[row_of]
-    spans = plan_spans(row_of[short], col[short], m, n, block, window,
-                       acc.itemsize, nnz)
     spmm_win = plan_windows(row_of[main], col[main], m, n, block,
                             spmm_window(window, acc))
     long = long_rows(indptr, hub_cap)
@@ -319,13 +218,11 @@ def build_routed(A, config):
               "val": val.to(plan_value_dtype(config, A.dtype)).contiguous(),
               "hub": hub_tensors(plan_hub(indptr, np.nonzero(is_hub)[0]), device),
               "long": torch.from_numpy(long).to(device),
-              "spans": tuple(torch.from_numpy(w).to(device) for w in spans),
               "windows": tuple(torch.from_numpy(w).to(device) for w in spmm_win)}
     shape = A.shape
-    max_span = int(spans[1].max(initial=0))
 
     def apply(arrays, x):
-        return routed_spmv(arrays, x, shape, hub_cap, window, max_span, block)
+        return routed_spmv(arrays, x, shape, hub_cap, window, block)
 
     def fn(x):
         return apply(arrays, x)
@@ -335,7 +232,5 @@ def build_routed(A, config):
     fn.plan_stats = {"impl": "routed", "window": window, "hub_cap": hub_cap,
                      "tail": n_tail, "nnz": nnz,
                      "long_rows": int(long.size),
-                     "staged_spans": int(np.count_nonzero(spans[1])),
-                     "max_span": max_span,
                      "staged_spmm_windows": int(spmm_win[1].size)}
     return fn

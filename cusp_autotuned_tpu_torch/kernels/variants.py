@@ -18,10 +18,10 @@ impls:
               block x (n, k), csrc/binned_spmm.cu), colsort
               (csrc/coo_spmv.cu, csrc/coo_spmm.cu), colsort2 (virtual rows
               in K planes and a degree-sorted hub region,
-              csrc/colsort2_spmv.cu, csrc/colsort2_spmm.cu), routed (x
-              staged in shared memory by column window, with a colsort2
-              tail for the hub rows, csrc/routed_spmv.cu,
-              csrc/routed_spmm.cu)
+              csrc/colsort2_spmv.cu, csrc/colsort2_spmm.cu), routed (the
+              SpMV walks its rows as colsort2's main rows, the SpMM stages
+              X in shared memory by column window, with a colsort2 tail
+              for the hub rows, csrc/routed_spmv.cu, csrc/routed_spmm.cu)
 
 `cuda` stands where the JAX package has `pallas`.  For a matrix on a CUDA
 device the default impl is `cuda` (for a block x, `binned` except on dia),
@@ -177,9 +177,8 @@ _SPACE_IMPLS = {
     "hyb": ("default", "via_dia", "cuda", "binned"),
 }
 BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
-# colsort2 and routed take the two larger blocks: the K teams of a
-# colsort2 row share a block (up to 4 x 32 lanes), and a routed block's
-# rows share each staged window
+# colsort2 and routed take the two larger blocks (the SpMM kernels' rows
+# share a block: colsort2's K teams, routed's staged windows)
 WIDE_BLOCKS = (256, 512)
 # binned: 0 = binned by length (up to a warp a row); the nnz-balanced
 # tiles of the `cuda` impl need no lanes-per-row axis
@@ -187,7 +186,7 @@ THREADS_PER_ROW = (0, 1, 4)
 VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
 VROW_PLANES = (1, 2, 4)                   # colsort2: K planes
 VROW_LENS = (8, 32)                       # colsort2: entries of a virtual row
-WINDOWS = (4096, 8192, 16384)             # routed: columns of a staged window
+WINDOWS = (4096, 8192, 16384)             # routed: columns of an SpMM window
 
 
 def default_config(A, x=None) -> Dict[str, Any]:
@@ -212,7 +211,7 @@ def tuning_space(A) -> TuningSpace:
     kernels/csr.py's ENTRIES_PER_THREAD entries); `threads_per_row`
     binned's lanes per row; `values_per_thread`
     colsort's chunk; `vrow_planes` and `vrow_len` colsort2's planes and
-    virtual-row length, `window` routed's staged columns, both on blocks
+    virtual-row length, `window` routed's SpMM window, both on blocks
     of 256 or 512 threads (45 configurations for csr and coo).
     Constraints pin each axis to 0 or
     'none' where it does not apply, as the fork pins PREFETCH_TYPE.  The

@@ -600,9 +600,9 @@ def _scattered_with_band_host(seed=7):
 
 
 def _scattered_with_band():
-    """20000 x 50000: 8 scattered entries a row, whose windows a routed row
-    block reads from x directly, plus a band of 41 entries a row, whose
-    windows it stages; the columns of every seventh row unsorted."""
+    """20000 x 50000: 8 scattered entries a row plus a band of 41 entries a
+    row, whose SpMM windows a routed row block stages; the columns of every
+    seventh row unsorted."""
     from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
     indptr, col, val, shape = _scattered_with_band_host()
     return csr_matrix(indptr, col, val, shape, dtype=torch.float32, device="cuda")
@@ -657,15 +657,14 @@ def test_colsort2_spmm_kernel_matches_plain_on_card(cuda_device, K, V, hub_cap,
 @pytest.mark.parametrize("block", [256, 512])
 @pytest.mark.parametrize("matrix", ["rails", "scattered"])
 def test_routed_kernel_matches_plain_on_card(cuda_device, matrix, block, window):
-    """The rails matrix has a tail (its 4096- and 1500-entry rows) and
-    stages spans for its short rows; the scattered one's rows of ~49
-    entries (8 scattered and a band of 41), some unsorted, take a warp
-    each and stage nothing."""
+    """The rails matrix has a tail (its 4096- and 1500-entry rows); the
+    scattered one's rows of ~49 entries (8 scattered and a band of 41),
+    some unsorted, take a warp each."""
     A = (from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
          if matrix == "rails" else _scattered_with_band())
     fn = build_routed(A, {"window": window, "block_size": block})
     a, st = fn.planned_arrays, fn.plan_stats
-    assert (st["tail"] > 0) == (st["staged_spans"] > 0) == (matrix == "rails")
+    assert (st["tail"] > 0) == (matrix == "rails")
     assert st["long_rows"] > 0
     launched = _rail_case(
         fn, lambda x: routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
@@ -718,7 +717,8 @@ def _rail_plain(impl, fn, A):
 def _edges_host():
     """The row walk's edges (csrc/rail_rows.cuh): rows of 16/17, 32/33 and
     64/65 entries (short or long, main or hub at thr 16 and 64), runs of
-    40 to 1000 empty rows, LP's shape (a warp a row) and a span at x's end."""
+    40 to 1000 empty rows, LP's shape (a warp a row) and rows that read x's
+    last columns."""
     edges = _edge_rows([0] * 40 + [16, 17, 32, 33, 64, 65, 5, 0] * 300 + [0] * 1000
                        + [3] * 50 + [0] * 70, 7000, 31)
     lp = _edge_rows(np.random.RandomState(4).randint(1200, 1400, 2000), 9000, 32)
@@ -739,20 +739,28 @@ def _edges_host():
 ])
 def test_rail_row_walk_edges_match_plain_on_card(cuda_device, impl, matrix, cfg):
     """Every edge of the shared row walk against the plain version, two calls
-    equal bit for bit; on LP's shape every row takes a warp, and the span
-    at x's end is staged."""
+    equal bit for bit; on LP's shape every row takes a warp."""
     A = from_scipy(_edges_host()[matrix], "csr", dtype=torch.float32,
                    device=cuda_device)
     fn = (build_colsort2 if impl == "colsort2" else build_routed)(A, cfg)
     st = fn.plan_stats
     if matrix == "lp":
         assert st["long_rows"] == A.num_rows
-    if matrix == "tail":
-        assert st["staged_spans"] == 8 and st["max_span"] > 0
     counter = colsort2_spmv if impl == "colsort2" else routed_spmv
     launched = _rail_case(fn, _rail_plain(impl, fn, A), _x(A.num_cols, cuda_device),
                           (counter,))
     assert launched == [1]
+
+
+@pytest.mark.parametrize("window", [4096, 8192])
+def test_routed_spmv_is_the_same_walk_at_every_window_on_card(cuda_device, window):
+    """The SpMV reads every x through L1/L2: a plan of any window gives the
+    default plan's y bit for bit."""
+    A = from_scipy(_edges_host()["edges"], "csr", dtype=torch.float32,
+                   device=cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    y = build_routed(A, {"hub_cap": 64, "window": window})(x)
+    assert torch.equal(y, build_routed(A, {"hub_cap": 64})(x))
 
 
 @pytest.mark.parametrize("impl", ["colsort2", "routed"])
@@ -1016,8 +1024,8 @@ def test_dia_spmm_probe_matches_plain_on_card(cuda_device, mode, k):
 
 
 def _routed_probe_matrix(device):
-    """Rows of four entries near column 4 r (staged in 4096-column windows),
-    two anywhere, and one hub row of 300 entries."""
+    """Rows of four entries near column 4 r, two anywhere, and one hub row
+    of 300 entries."""
     rng = np.random.RandomState(5)
     m, n = 8192, 40000
     rows = np.repeat(np.arange(m), 6)
@@ -1030,22 +1038,22 @@ def _routed_probe_matrix(device):
     return from_scipy(S.tocsr(), "csr", dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("mode", ["full", "nostage", "stageonly", "nohub", "loads"])
+@pytest.mark.parametrize("mode", ["full", "nohub", "loads"])
 def test_routed_probe_matches_plain_on_card(cuda_device, mode):
     from cusp_autotuned_tpu_torch.benchmarks import routed_probe
     A = _routed_probe_matrix(cuda_device)
     x = _x(A.num_cols, cuda_device)
     config = {"hub_cap": 32, "window": 4096, "block_size": 256}
     fn, info = routed_probe.build_probe(A, config, mode)
-    assert info["staged_spans"] > 0 and info["tail_share"] > 0
+    assert info["tail_share"] > 0
     before = routed_probe.routed_probe.launches
     y = fn(x)
     assert routed_probe.routed_probe.launches == before + 1
-    args = (A.shape, info["hub_cap"], mode, 256)
+    args = (A.shape, info["hub_cap"], mode)
     a = fn.planned_arrays
     plain = routed_probe.routed_probe_plain(a, x, *args)
     scale = routed_probe.routed_probe_plain({**a, "val": a["val"].abs()}, x.abs(),
                                             *args)
     assert bool(((y - plain).abs() <= 1e-4 + 1e-4 * scale).all())
-    if mode in ("full", "nostage"):
+    if mode == "full":
         assert torch.equal(y, build_routed(A, config)(x))

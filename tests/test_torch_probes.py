@@ -152,9 +152,8 @@ def test_dia_spmm_probe_modes():
 
 def _staged_mix():
     """2048 x 20000: four entries a row near column 4 r (a block of 256
-    rows puts 1024 of them in one 4096-column window, which the plan
-    stages), two anywhere (left to direct gathers), and one hub row of 100
-    entries above hub_cap 32."""
+    rows puts 1024 of them in one 4096-column window), two anywhere, and
+    one hub row of 100 entries above hub_cap 32."""
     rng = np.random.RandomState(5)
     m, n = 2048, 20000
     rows = np.repeat(np.arange(m), 6)
@@ -190,49 +189,59 @@ def test_routed_probe_full_matches_pallas():
     np.testing.assert_allclose(y.numpy(), ref, **RAIL_TOL)
     hub = S.indptr[8] - S.indptr[7]           # row 7: its six entries and 100 more
     assert hub >= 100 and info["tail_share"] == pytest.approx(hub / S.nnz)
-    assert info["staged_spans"] >= 8 and 0.5 < info["staged_share"] < 0.8
+    assert info["long_rows"] == 0 and info["hub_cap"] == 32
 
 
-def _numpy_modes(S, x, info, arrays):
-    """Each mode's definition in numpy: the entries of each row of at most
-    hub_cap entries (own rows), staged where the row has at most 32 entries
-    and their column lies in the span that the row's block of 256 rows
-    stages."""
+def _numpy_modes(S, x, thr):
+    """Each mode's definition in numpy, over the rows of at most thr entries
+    (own rows); full adds the hub rows, which the tail writes."""
     m, n = S.shape
-    B, thr = CONFIG["block_size"], info["hub_cap"]
-    span_lo, span_len = (t.numpy() for t in arrays["spans"])
     indptr, col, val = S.indptr, S.indices, S.data.astype(np.float64)
     out = {k: np.zeros(m) for k in routed_probe.MODES}
     for r in range(m):
         lo, hi = indptr[r], indptr[r + 1]
         c, v = col[lo:hi], val[lo:hi]
-        full = float(v @ x[c])
+        out["full"][r] = float(v @ x[c])
         if hi - lo > thr:                     # a hub row: the tail writes it
-            for mode in ("full", "nostage", "stageonly"):
-                out[mode][r] = full
             continue
-        s0 = span_lo[r // B]
-        staged = (hi - lo <= 32) & (c >= s0) & (c < s0 + span_len[r // B])
-        out["full"][r] = out["nostage"][r] = out["nohub"][r] = full
-        out["stageonly"][r] = float(v[staged] @ x[c[staged]])
+        out["nohub"][r] = out["full"][r]
         out["loads"][r] = float((v + 1e-30 * c).sum())
     return out
 
 
 @pytest.mark.parametrize("mode", routed_probe.MODES)
 def test_routed_probe_modes_match_their_definitions(mode):
-    """full and nostage: the product; stageonly: only staged windows'
-    entries; nohub: no tail (hub rows 0); loads: sum of val + 1e-30 col
-    over the row, hub rows 0 (the JAX loads, benchmarks/routed_probe.py:65-66)."""
+    """full: the product; nohub: no tail (hub rows 0); loads: sum of val +
+    1e-30 col over the row, hub rows 0 (the JAX loads,
+    benchmarks/routed_probe.py:65-66)."""
     S, J, x, _ = _routed_case()
     A = port_of(J)
     fn, info = routed_probe.build_probe(A, CONFIG, mode)
-    want = _numpy_modes(S, x, info, fn.planned_arrays)[mode]
+    want = _numpy_modes(S, x, info["hub_cap"])[mode]
     np.testing.assert_allclose(fn(torch.from_numpy(x)).numpy(), want, **RAIL_TOL)
     if mode == "full":
         shipped = build_routed(A, CONFIG)
         np.testing.assert_allclose(fn(torch.from_numpy(x)).numpy(),
                                    shipped(torch.from_numpy(x)).numpy(), **RAIL_TOL)
+
+
+def test_routed_probe_modes_follow_the_kernels_order():
+    """MODES index rail_rows.cuh's Mode (kFullMode 0, kNoHub 1, kLoads 2);
+    an unknown mode raises."""
+    assert routed_probe.MODES == ("full", "nohub", "loads")
+    with pytest.raises(InvalidInputException):
+        routed_probe.build_probe(None, CONFIG, "nostage")
+
+
+def test_routed_probe_nohub_differs_from_full_on_the_hub_rows_alone():
+    S, J, x, _ = _routed_case()
+    A = port_of(J)
+    xt = torch.from_numpy(x)
+    full = routed_probe.build_probe(A, CONFIG, "full")[0](xt).numpy()
+    nohub = routed_probe.build_probe(A, CONFIG, "nohub")[0](xt).numpy()
+    hub = np.diff(S.indptr) > CONFIG["hub_cap"]
+    assert hub.sum() == 1 and (nohub[hub] == 0).all() and full[hub][0] != 0
+    assert np.array_equal(nohub[~hub], full[~hub])
 
 
 def test_routed_probe_plan_is_the_shipped_plan():

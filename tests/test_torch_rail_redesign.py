@@ -2,7 +2,7 @@
 and its plans, on the CPU.
 
 The kernels run only on the card; what they read is planned here by
-build_colsort2 and build_routed (the long rows, routed's staged spans).  So
+build_colsort2 and build_routed (the long rows and the hub region).  So
 the tests walk the kernels' algorithm in numpy over the planned warps: the
 short rows of each warp's 32 rows located chunk by chunk (the gapless
 index or the five-step search over the prefix sums), each summed by its
@@ -19,12 +19,12 @@ import scipy.sparse as sp
 import torch
 
 from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
 from cusp_autotuned_tpu_torch.kernels.colsort2 import (
     SHORT_ROW, build_colsort2, colsort2_spmv_plain, long_rows, plan_colsort2,
 )
 from cusp_autotuned_tpu_torch.kernels.routed import (
-    SECTOR_BYTES, STAGE_CHUNK, build_routed, plan_spans, routed_spmv_plain,
-    touched_sectors,
+    STAGE_MIN_FILL, build_routed, routed_spmv_plain, spmm_window,
 )
 
 from tests.torch_parity import one_thread  # noqa: F401
@@ -70,23 +70,18 @@ def tree32(lanes):
     return a[0]
 
 
-def walk(indptr, col, val, x, thr, V, long, block, spans=None, dtype=np.float64):
-    """csrc/rail_rows.cuh in numpy: the short rows warp by warp, 128 entries
-    at a time, each located as the kernel locates it and summed by its lane
-    in plane order; then each long row by a warp.  Returns (y, writes): y is
-    NaN where the walk wrote nothing (the hub rows).  spans: routed's
-    (span_lo, span_len) a block of `block` rows; staged entries read the
-    same x, so the spans change where x comes from and nothing else, and
-    the walk checks that they lie in one window's reach of x."""
+def walk(indptr, col, val, x, thr, V, long, block, dtype=np.float64):
+    """csrc/rail_rows.cuh in numpy: the short rows warp by warp (blocks of
+    `block` rows), 128 entries at a time, each located as the kernel
+    locates it and summed by its lane in plane order; then each long row by
+    a warp.  Returns (y, writes): y is NaN where the walk wrote nothing (the
+    hub rows)."""
     indptr = np.asarray(indptr, np.int64)
     m = indptr.size - 1
     prod = (np.asarray(val, dtype) * np.asarray(x, dtype)[col]).astype(dtype)
     y, writes = np.full(m, np.nan, dtype), np.zeros(m, np.int64)
     lim = min(SHORT_ROW, thr)
     for b in range(-(-m // block)):
-        if spans is not None:
-            lo, ln = int(spans[0][b]), int(spans[1][b])
-            assert ln >= 0 and lo + ln <= x.size
         for r0 in range(b * block, min(m, (b + 1) * block), 32):
             rows = np.arange(r0, r0 + 32)
             have = rows < m
@@ -159,8 +154,7 @@ def _routed_walk(A, cfg, x, dtype=np.float64):
     a, st = fn.planned_arrays, fn.plan_stats
     y, writes = walk(a["indptr"].numpy(), a["col"].numpy(), a["val"].numpy(), x,
                      st["hub_cap"], NO_PLANES, a["long"].numpy(),
-                     cfg.get("block_size", 256),
-                     spans=[t.numpy() for t in a["spans"]], dtype=dtype)
+                     cfg.get("block_size", 256), dtype=dtype)
     return fn, y, writes
 
 
@@ -211,8 +205,8 @@ def test_routed_walk_writes_each_main_row_once_and_matches_plain(name, window,
 def test_f32_walk_of_a_band_equals_the_whole_walk(impl):
     """Rows 250..1199 of a matrix planned alone (as shard_planned_blocks
     plans a band, with the whole matrix's hub_cap) give the whole walk's
-    sums on those rows bit for bit, though the band's warps, blocks and
-    staged spans fall elsewhere."""
+    sums on those rows bit for bit, though the band's warps and blocks fall
+    elsewhere."""
     lengths = np.random.RandomState(5).randint(0, 90, 1600)
     S = _matrix(lengths, seed=9, n=3000)
     band = S[250:1200]
@@ -257,63 +251,60 @@ def test_long_rows_and_the_thresholds_at_the_edges():
     assert fn.plan_stats["tail"] == 65
 
 
-def _brute_cells(row_of, col, n, block, vbytes):
-    spc = SECTOR_BYTES // vbytes
-    cells = {}
-    for r, c in zip(row_of, col):
-        cells.setdefault((r // block, c // spc), 0)
-        cells[(r // block, c // spc)] += 1
-    return cells, spc
-
-
-def test_plan_spans_counts_sectors_and_stages_by_the_rule():
-    """Block 0 reads columns 0..1023 densely (every sector, eight entries a
-    sector) plus a few strays in its window: the span is the dense run.
-    Block 1 reads one entry a sector over 2,048 columns (no reuse), block 2
-    every column of every third 1 KB chunk across a window (the chunks are
-    dense but the span between them is not), block 3 nothing.  A plan whose
-    spans would hold under STAGE_MIN_SHARE of the entries stages none."""
-    B, W, n = 64, 4096, 20000
-    rows, cols = [], []
-    for c in range(1024):                       # block 0: 128 sectors x 8
-        rows.append(c % B)
-        cols.append(c)
-    rows += [0, 1, 2]
-    cols += [3000, 3500, 4000]                  # strays, same window
-    for c in range(4096, 4096 + 2048, 8):       # block 1: a sector each
-        rows.append(B + (c // 8) % B)
-        cols.append(c)
-    for chunk in range(0, 16, 3):               # block 2: every third chunk
-        for c in range(chunk * 256, chunk * 256 + 256):
-            rows.append(2 * B + c % B)
-            cols.append(8192 + c)
-    rows, cols = np.array(rows), np.array(cols)
-    blk, sec, hits = touched_sectors(rows, cols, n, B, 4)
-    cells, spc = _brute_cells(rows, cols, n, B, 4)
-    assert spc == 8 and STAGE_CHUNK == 32
-    assert dict(zip(zip(blk.tolist(), sec.tolist()), hits.tolist())) == cells
-    lo, ln = plan_spans(rows, cols, 4 * B, n, B, W, 4, rows.size)
-    assert lo.tolist() == [0, 0, 0, 0] and ln.tolist() == [1024, 0, 0, 0]
-    # the span holds 1024 of 2,819 entries: under an eighth of 8 x 2,819 it
-    # does not pay for the staging code in every block
-    assert not plan_spans(rows, cols, 4 * B, n, B, W, 4, 8 * rows.size)[1].any()
-    # f64 x: four columns a sector, chunks of 128 columns; the strays are
-    # still outside every dense chunk
-    lo, ln = plan_spans(rows, cols, 4 * B, n, B, W, 8, rows.size)
-    assert ln[0] == 1024 and ln[1:].tolist() == [0, 0, 0]
-
-
-def test_plan_spans_clip_a_window_at_the_edge_of_x():
-    """n = 5,000 leaves the second 4096-column window 904 columns wide; a
-    block that reads its last 300 columns densely stages them, and the span
-    ends at n, not at the window's or the sector's end."""
+def test_routed_walk_at_the_edge_of_x():
+    """n = 4,998 leaves the second 4096-column window 902 columns wide: rows
+    that read x's last 300 columns walk to scipy's y, and the SpMM plan's
+    windows (of spmm_window(4096) rows of X) are those that hold an eighth
+    of a window's entries, the clipped last one among them."""
     B, n = 64, 4998
     cols = np.repeat(np.arange(n - 300, n), 4)
     rows = np.arange(cols.size) % B
-    lo, ln = plan_spans(rows, cols, B, n, B, 4096, 4, rows.size)
-    assert lo[0] == (n - 300) // 8 * 8 and lo[0] + ln[0] == n
-    fn = build_routed(from_scipy(sp.csr_matrix(
-        (np.ones(cols.size), (rows, cols)), shape=(B, n)), "csr",
-        dtype=torch.float32, device="cpu"), {"window": 4096, "block_size": B})
-    span = [t.tolist() for t in fn.planned_arrays["spans"]]
-    assert span == [[int(lo[0])], [int(ln[0])]] and fn.plan_stats["max_span"] == ln[0]
+    S = sp.csr_matrix((np.random.RandomState(2).uniform(-1, 1, cols.size),
+                       (rows, cols)), shape=(B, n))
+    x = _x(n)
+    fn, y, writes = _routed_walk(_port(S), {"window": 4096, "block_size": B}, x)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(y, S @ x, **TOL)
+    ws = spmm_window(4096, torch.float64)
+    want = np.flatnonzero(np.bincount(cols // ws) >= STAGE_MIN_FILL * ws)
+    win_ptr, win_ids = (t.tolist() for t in fn.planned_arrays["windows"])
+    assert win_ptr == [0, want.size] and win_ids == want.tolist()
+    assert want[-1] == (n - 1) // ws
+
+
+@pytest.mark.parametrize("window", [4096, 8192, 16384])
+def test_window_shapes_the_spmm_plan_alone(window):
+    """The SpMV reads every x through L1/L2: its plan (indptr, sorted
+    columns, values, long rows, hub region) is the same at every window;
+    only the SpMM windows follow `window`."""
+    S = _matrix(PATTERNS["mixed lengths with long and hub rows"], seed=4, n=20000)
+    A = _port(S)
+    base = build_routed(A, {"hub_cap": 64}).planned_arrays
+    got = build_routed(A, {"hub_cap": 64, "window": window}).planned_arrays
+    for key in ("indptr", "col", "val", "long"):
+        assert torch.equal(got[key], base[key])
+    assert all(torch.equal(a, b) for a, b in zip(got["hub"], base["hub"]))
+    assert (torch.equal(got["windows"][1], base["windows"][1])) == (window == 16384)
+
+
+def test_short_rows_empties_the_longer_rows_alone():
+    """spmv_tiles' "NAME, rows of at most T" matrices: a plan's main rows."""
+    S = _matrix(PATTERNS["mixed lengths with long and hub rows"], seed=6)
+    cut = spmv_tiles.short_rows(S, 16)
+    short = np.diff(S.indptr) <= 16
+    assert cut.shape == S.shape and (np.diff(cut.indptr)[~short] == 0).all()
+    assert (cut[np.flatnonzero(short)] != S[np.flatnonzero(short)]).nnz == 0
+
+
+def test_tree_builders_import_a_tree_beside_this_one():
+    """--against TREE: the tree's builders come from modules of their own,
+    and this tree's modules are back in place after."""
+    import sys
+    from pathlib import Path
+    before = sys.modules["cusp_autotuned_tpu_torch.kernels.routed"]
+    other = spmv_tiles.tree_builders(Path(spmv_tiles.__file__).parents[2])
+    assert sys.modules["cusp_autotuned_tpu_torch.kernels.routed"] is before
+    assert other["routed"] is not build_routed
+    S = _matrix(PATTERNS["short rows only"], seed=3)
+    A, x = _port(S), torch.from_numpy(_x(S.shape[1]))
+    assert torch.equal(other["routed"](A, {})(x), build_routed(A, {})(x))
