@@ -94,12 +94,18 @@ Phases:
                (~8 entries a row) and a power-law 1M-row matrix; the COO
                kernel on poisson also L2-cold beside cuSPARSE (row 6)
   dia_spmm     the DIA SpMM kernel against its plain version: poisson5pt
-               1000x1000 at k = 3, 16 and 128 in f32 and bf16 storage, and
-               the JAX package's DIA SpMM test shapes
+               1000x1000 at k = 3, 16 and 128 in f32 and bf16 storage, the
+               JAX package's DIA SpMM test shapes, and the edges of its
+               schedule (k = 5, 33 and 130, X on 8- and 4-byte boundaries),
+               two calls equal bit for bit; then L2-cold beside cuSPARSE at
+               k = 3, 16 and 128 (queue row 3)
   binned_spmm, coo_spmm
                the row-binned and COO SpMM kernels against their plain
                versions at k = 16 on the four matrices above, and on the JAX
-               package's SpMM test shapes
+               package's SpMM test shapes; the COO kernel also at k = 5, 33
+               and 130 and on X off a 16-byte boundary, two calls equal bit
+               for bit, and L2-cold beside cuSPARSE at k = 3, 16 and 128 on
+               poisson5pt 1000x1000 and the skewed 1M-row matrix (row 6')
   colsort2_spmv, routed_spmv
                the colsort2 and routed kernels (with the colsort2 hub pair
                as routed's tail) against their plain versions on the four
@@ -112,12 +118,17 @@ Phases:
                phase's plans and the default ones (rows 7 and 8)
   colsort2_spmm, routed_spmm
                the same at k = 16 on the four matrices, and on the JAX
-               package's SpMM test shapes of the two rails
+               package's SpMM test shapes of the two rails; colsort2's SpMM
+               also two calls equal bit for bit, at k = 5, 33 and 130 and on
+               X off a 16-byte boundary (a skewed 20000-row matrix with hub
+               rows), and L2-cold beside cuSPARSE at k = 3, 16 and 128 on
+               poisson5pt 1000x1000 and the skewed 1M-row matrix (row 7)
   dia_band_spmv, dia_band_spmm
                the DIA band kernels against their plain versions on every
                row band of poisson5pt 1000x1000 f32 over a mesh of four
                entries, a vector and k = 16, rtol 1e-6, and the banded
-               product against the unsharded DIA kernel's
+               product against the unsharded DIA kernel's (at k = 16 bit for
+               bit); band 0 at k = 16 also L2-cold beside cuSPARSE (row 11)
   launch_floor, dia_probe, dia_spmm_probe, routed_probe
                the measurement path's four kernels in every mode against
                their plain versions (the launch floor bit for bit; DIA at
@@ -125,9 +136,9 @@ Phases:
                row's sum of |a x|), and each probe's shipped mode against
                the shipped kernel bit for bit (dia_probe full and nobounds
                against dia_spmv at four block sizes; dia_spmm_probe
-               shipped, team=T and xtile against dia_spmm on every shape
-               its main() times, poisson5pt 1000x1000 at k = 16 and 128
-               and 300x300 at k = 128, and on 1000x1000 at k = 3;
+               shipped, rows=R, team=T and xtile against dia_spmm on every
+               shape its main() times, poisson5pt 1000x1000 at k = 3, 16
+               and 128 and 300x300 at k = 128;
                routed_probe full against routed_spmv on
                Economics and LP, two plans each), then the probes path
   take_probe   the take probe (both instantiations: x staged in shared
@@ -198,9 +209,9 @@ BAND_RTOL = 1e-6                     # a band's rows are the unsharded kernel's
 SHARDED_CG_RTOL = 1e-4               # __graft_entry__.py:99 (x of the CG variants)
 ROW12_RTOL = 1e-5                    # relative to ||y||
 # the kernels each wrapper launches, each once a call (the CSR fold where
-# the plan has two tiles or more; the COO SpMM wrapper's torch.zeros adds a
-# fill kernel, which is PyTorch's own, and so does the COO SpMV wrapper's
-# for a plan with a run of more than GAP_ROWS empty rows)
+# the plan has two tiles or more; the COO wrappers' torch.zeros adds a fill
+# kernel, which is PyTorch's own, for a plan with a run of more than
+# GAP_ROWS empty rows)
 WRAPPER_KERNELS = {
     "dia_spmv": ("dia_spmv_kernel",),
     "csr_spmv": ("csr_tile_kernel", "csr_fold_kernel"),
@@ -497,18 +508,21 @@ def describe(name, A):
         f"{int((lengths == 0).sum())} empty")
 
 
-def cold_line(label, fn, x, nbytes, library=None):
+def cold_line(label, fn, x, nbytes, library=None, library_x=None):
     """Print fn's and the library call's L2-cold times (spmv_tiles.cold and
     library_cold, through harness.time_cold: device ms from a graph's
     replay, ms a call back to back), beside the bound at the data-sheet
     rate.  fn is a plan (planned_arrays, apply), so that each copy holds
-    arrays of its own; library is a sparse CSR tensor."""
+    arrays of its own; library is a sparse CSR tensor, applied to
+    library_x where given (a band plan's x is padded), else to x."""
     from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
     dev, call = spmv_tiles.cold(fn, x, nbytes, samples=RAIL_SAMPLES)
     line = (f"  {label}, L2-cold: {dev:.4f} ms device, {call:.4f} "
             f"ms a call; bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
     if library is not None:
-        ldev, lcall = spmv_tiles.library_cold(library, x, nbytes,
+        ldev, lcall = spmv_tiles.library_cold(library,
+                                              x if library_x is None else library_x,
+                                              nbytes,
                                               samples=RAIL_SAMPLES)
         line += f"; cuSPARSE {ldev:.4f} ms device, {lcall:.4f} ms a call"
     log(line)
@@ -609,6 +623,40 @@ def seeded_block(n, k, seed, device):
     return torch.from_numpy(X).to(device)
 
 
+def misaligned(X, offset):
+    """A contiguous copy of X `offset` values past the start of its memory
+    (an f32 X: 2 puts it on an 8-byte boundary, 1 on a 4-byte one)."""
+    flat = torch.empty(X.numel() + offset, dtype=X.dtype, device=X.device)
+    out = flat[offset:].view(X.shape)
+    out.copy_(X)
+    return out
+
+
+def spmm_edges(name, fn, plain, scale, n, ks, device, across=True):
+    """fn(X) against plain(X) (rtol RAIL_RTOL of `scale`(X)) at each k of ks
+    with X on a 16-, 8- and 4-byte boundary: the SpMM schedule's 16-byte,
+    8-byte and one-value paths; two calls equal bit for bit, and where
+    `across` (a sum's order does not depend on the width) every path's Y
+    equal to the first's."""
+    for k in ks:
+        X = seeded_block(n, k, 6, device)
+        first = None
+        for offset in (0, 2, 1):
+            Xo = misaligned(X, offset)
+            Y = fn(Xo)
+            err = check_mode(f"{name} k={k} X +{4 * offset} B", Y, plain(Xo),
+                             RAIL_RTOL, RAIL_ATOL, scale(Xo))
+            first = Y if first is None else first
+            if not ((torch.equal(Y, first) or not across) and torch.equal(fn(Xo), Y)):
+                raise RuntimeError(f"{name} k={k} X +{4 * offset} B: differs from "
+                                   f"the 16-byte path or between two calls")
+            log(f"  {name} k={k}, X {4 * offset} bytes past a 16-byte boundary: "
+                f"max abs err {err:.3e}; "
+                + ("equal to the 16-byte path and " if across else "")
+                + "two calls equal bit for bit")
+        del X, Xo, Y, first
+
+
 def dia_spmm_phase(device, triad_gbps):
     from cusp_autotuned_tpu_torch import gallery
     from cusp_autotuned_tpu_torch.backend.reference import from_scipy
@@ -653,7 +701,23 @@ def dia_spmm_phase(device, triad_gbps):
             RAIL_RTOL, RAIL_ATOL, useful, 2 * A.nnz * k, triad_gbps,
             library_spmv(A, X, big_csr if A is big else None), SPMM_SAMPLES,
             scale, SPMM_PER_SAMPLE)
+        if not torch.equal(fn(X), fn(X)):
+            raise RuntimeError(f"dia_spmm {name}: two calls differ")
         del X, scale
+    mid = gallery.poisson5pt(300, 300, format="dia", device=device)
+    fm = build_dia(mid, {})
+    log("dia_spmm: the schedule's edges on poisson5pt 300x300 f32")
+    spmm_edges("dia_spmm poisson5pt 300x300", fm,
+               lambda X: dia_spmv_plain(mid.data, mid.offsets, X, mid.shape),
+               lambda X: dia_spmv_plain(mid.data.abs().double(), mid.offsets,
+                                        X.abs().double(), mid.shape).float(),
+               mid.num_cols, (3, 5, 16, 33, 130), device)
+    for k in (3, 16, 128):
+        X = seeded_block(big.num_cols, k, 3, device)
+        cold_line(f"row 3: dia_spmm poisson5pt 1000x1000 f32 k={k}",
+                  build_dia(big, {}), X, big.num_diagonals * big.rows_padded * 4
+                  + (big.num_rows + big.num_cols) * k * 4, big_csr)
+        del X
     return results["poisson5pt 1000x1000 f32 k=16"]
 
 
@@ -709,7 +773,29 @@ def rails_spmm_phase(device, triad_gbps, matrices):
             lambda: coo_spmv_plain(c["row"], c["col"], c["val"], X, m),
             RAIL_RTOL, RAIL_ATOL, nnz * 12 + (n + m) * k * 4, 2 * nnz * k,
             triad_gbps, library, SPMM_SAMPLES, scale, SPMM_PER_SAMPLE)
+        if not torch.equal(fc(X), fc(X)):
+            raise RuntimeError(f"coo_spmm {name}: two calls differ")
         del fb, fc, a, c, scale, X, library
+    mid = gallery.poisson5pt(300, 300, format="csr", device=device)
+    fm = build_colsort(mid, {})
+    c = fm.planned_arrays
+    log("coo_spmm: the schedule's edges on poisson5pt 300x300 f32")
+    spmm_edges("coo_spmm poisson5pt 300x300", fm,
+               lambda X: coo_spmv_plain(c["row"], c["col"], c["val"], X,
+                                        mid.num_rows),
+               lambda X: coo_spmv_plain(c["row"], c["col"], c["val"].abs().double(),
+                                        X.abs().double(), mid.num_rows).float(),
+               mid.num_cols, (3, 5, 16, 33, 130), device,
+               across=False)     # a team's segment of a chunk is vpt T entries
+    for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
+        A = matrices[name]
+        S = sparse_csr(A)
+        for k in (3, 16, 128):
+            X = seeded_block(A.num_cols, k, 5, device)
+            cold_line(f"row 6': coo_spmm {name} k={k}", build_colsort(A, {}), X,
+                      A.nnz * 12 + (A.num_rows + A.num_cols) * k * 4, S)
+            del X
+        del S
     return {k: v["poisson5pt 1000x1000 f32 k=16"] for k, v in out.items()}
 
 
@@ -878,8 +964,8 @@ def new_rails_phase(device, triad_gbps, matrices):
                                         m, st["vrow_planes"], st["vrow_len"], st["thr"]),
             RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
             per_sample)
-        if k == 0 and not torch.equal(fc(X), fc(X)):
-            raise RuntimeError(f"colsort2_spmv {name}: two calls differ")
+        if not torch.equal(fc(X), fc(X)):
+            raise RuntimeError(f"colsort2_{kind} {name}: two calls differ")
         del fc, a
 
         cap, share = routed_hub_cap(A)
@@ -933,6 +1019,36 @@ def new_rails_phase(device, triad_gbps, matrices):
             S = None                  # cuSPARSE once a matrix
             del fn
         del x
+
+    log("colsort2_spmm: the schedule's edges on a skewed 20000-row matrix (hub "
+        "rows too), chip_smoke's plan and the default")
+    from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
+    E = spmv_tiles.skewed(20_000, 5, device)
+    for cfg in (COLSORT2_CONFIG, {}):
+        fe = build_colsort2(E, cfg)
+        a, st = fe.planned_arrays, fe.plan_stats
+
+        def plain(X, a=a, st=st, abs_=False):
+            return colsort2_spmv_plain(
+                a["indptr"], a["col"], a["val"].abs().double() if abs_ else a["val"],
+                a["hub"], X.abs().double() if abs_ else X, E.num_rows,
+                st["vrow_planes"], st["vrow_len"], st["thr"])
+        spmm_edges(f"colsort2_spmm {cfg or 'default'} ({st['hub_rows']} hub rows)",
+                   fe, plain, lambda X: plain(X, abs_=True).float(), E.num_cols,
+                   (3, 5, 16, 33, 130), device)
+        del fe, a
+    log("row 7's SpMM, L2-cold: useful bytes nnz*(4+4) + (m+1)*4 + (n+m)*k*4")
+    for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
+        A = matrices[name]
+        for k in (3, 16, 128):
+            X = seeded_block(A.num_cols, k, 5, device)
+            S = sparse_csr(A)
+            for cfg in (COLSORT2_CONFIG, {}):
+                cold_line(f"row 7: colsort2_spmm {cfg or 'default'} {name} k={k}",
+                          build_colsort2(A, cfg), X, A.nnz * 8 + (A.num_rows + 1) * 4
+                          + (A.num_rows + A.num_cols) * k * 4, S)
+                S = None              # cuSPARSE once a (matrix, k)
+            del X
     return {"colsort2_spmv": out["colsort2_spmv"]["poisson5pt 1000x1000 f32"],
             "routed_spmv": out["routed_spmv"]["poisson5pt 1000x1000 f32"],
             "colsort2_spmm": out["colsort2_spmm"]["poisson5pt 1000x1000 f32 k=16"],
@@ -1671,6 +1787,7 @@ def band_phase(device, triad_gbps, A_csr, S):
     plain versions and cuSPARSE on the same band, the COO kernel also
     L2-cold.  Returns the two band kernels' records."""
     from cusp_autotuned_tpu_torch import parallel
+    from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
     from cusp_autotuned_tpu_torch.kernels.binned import binned_spmv_plain
     from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmv_plain
     from cusp_autotuned_tpu_torch.kernels.dia import (
@@ -1721,9 +1838,16 @@ def band_phase(device, triad_gbps, A_csr, S):
                                        f"version")
         y_banded, y_whole = op(x), unsharded(x)
         torch.cuda.synchronize()
-        if not bool(((y_banded - y_whole).abs() <= BAND_RTOL * y_whole.abs()).all()):
+        # the SpMM band kernel runs the whole kernel's body: the same bits
+        if (cols and not torch.equal(y_banded, y_whole)) or not bool(
+                ((y_banded - y_whole).abs() <= BAND_RTOL * y_whole.abs()).all()):
             raise RuntimeError(f"{name}: the banded product differs from the "
                                f"unsharded DIA kernel's")
+        if cols:
+            band0, _, x_prep = spmv_tiles.band_plan(D, device, MESH_ENTRIES)
+            cold_line(f"row 11: {name} band 0 of {MESH_ENTRIES} k={cols}", band0,
+                      x_prep(x), k * band * 4 + (2 * band + span) * 4 * cols,
+                      band_csr(A_csr, 0, band), library_x=x)
         log(f"  {name}: every band matches its plain version; banded product "
             f"against the unsharded kernel's: max abs diff "
             f"{float((y_banded - y_whole).abs().max()):.3e}")
@@ -1989,9 +2113,9 @@ def probes_phase(device, triad_gbps):
     del x, shipped, full
 
     log("probes: dia_spmm_probe against its plain versions (rtol 1e-5, atol "
-        "1e-4), shipped, team=T and xtile equal to dia_spmm bit for bit:")
+        "1e-4), shipped, rows=R, team=T and xtile equal to dia_spmm bit for bit:")
     # the shapes main() times, and k = 3 for the narrow team
-    for grid, k in dia_spmm_probe.SHAPES + ((1000, 3),):
+    for grid, k in dia_spmm_probe.SHAPES:
         D = gallery.poisson5pt(grid, grid, format="dia", device=device)
         X = seeded_block(D.num_cols, k, 2, device)
         shipped = build_dia(D, {})(X)

@@ -6,10 +6,13 @@ benchmarks/dia_spmm_probe.py.)
 
 The kernel `csrc/dia_spmm_probe.cu` (replacing the Pallas probe _kernel,
 dia_spmm_probe.py:29, launched at :68) runs the shipped dia_spmm_kernel
-and three variants of it:
+and variants of it:
 
-  shipped   the shipped body (a team of min(32, next_pow2(k)) lanes spans
-            a tile of columns of a row): equal to dia_spmm bit for bit
+  shipped   the shipped body (csrc/dia_spmm_body.cuh) at the shipped
+            schedule (kernels/dia.py, spmm_schedule): equal to dia_spmm bit
+            for bit
+  rows=R    the same body and schedule with R rows a lane (R = 1, 2, 4):
+            equal to it too
   team=T    a warp a row, each lane T / 32 columns, with 8- or 16-byte
             loads where k allows (T = 32, 64, 128): equal to it too
   xtile     a block's rows of X staged once in shared memory for each
@@ -22,8 +25,8 @@ swept the TPU's VMEM budget; the questions on the card are how the threads
 span X's columns and whether X's shifted rows come again from L1/L2.  The
 plain version and cuSPARSE (torch.sparse_csr_tensor @ X) are timed beside
 them as yardsticks, where :113 timed the XLA path.  Shapes: poisson5pt
-1000x1000 at k = 16 and 128 (useful ~148 and ~1044 MB), and the JAX
-probe's own 300x300 at k = 128 (:96-97).  Every row is timed with its
+1000x1000 at k = 3, 16 and 128 (useful ~44, ~148 and ~1044 MB), and the
+JAX probe's own 300x300 at k = 128 (:96-97).  Every row is timed with its
 working set out of L2 (harness.time_cold; only the 1000x1000 k = 128
 shape is past four L2s on its own).
 """
@@ -34,16 +37,19 @@ import numpy as np
 import torch
 
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.kernels.dia import dia_spmv_plain
+from cusp_autotuned_tpu_torch.kernels.dia import (
+    alignment, dia_spmv_plain, spmm_schedule,
+)
 from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 
-MODES = ("shipped", "team=32", "team=64", "team=128", "xtile", "nodata")
-SHAPES = ((1000, 16), (1000, 128), (300, 128))     # (grid, k)
-_KIND = {"shipped": 0, "team": 1, "xtile": 2, "nodata": 3}
+MODES = ("shipped", "rows=1", "rows=2", "rows=4", "team=32", "team=64",
+         "team=128", "xtile", "nodata")
+SHAPES = ((1000, 3), (1000, 16), (1000, 128), (300, 128))     # (grid, k)
+_KIND = {"shipped": 0, "rows": 0, "team": 1, "xtile": 2, "nodata": 3}
 
 
 def _parse(mode):
-    """(kernel mode number, team width) of a mode name."""
+    """(kernel mode number, team width or rows a lane) of a mode name."""
     if mode not in MODES:
         raise InvalidInputException(f"no DIA SpMM probe mode {mode!r} (modes {MODES})")
     kind, _, team = mode.partition("=")
@@ -84,10 +90,11 @@ def dia_spmm_probe(data, offsets, X, shape, mode, block=_build.DEFAULT_BLOCK):
             f"{tuple(X.shape)} (contiguous, 16-byte aligned), matrix {shape}")
     k = X.shape[1]
     Y = torch.empty((m, k), dtype=torch.float32, device=X.device)
+    rows = team if mode.startswith("rows=") else None
     if m:
         _build.launch("cusp_dia_spmm_probe", torch.float32, X.device, data,
                       offsets, data.shape[0], data.shape[1], X, Y, m, n, k, kind,
-                      team, block)
+                      team, *spmm_schedule(k, alignment(X, Y), 4, rows), block)
         dia_spmm_probe.launches += 1
     return Y
 

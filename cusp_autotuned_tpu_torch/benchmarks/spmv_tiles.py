@@ -1,10 +1,11 @@
 """Time the CSR kernel (the `cuda` impl), the COO kernel (`colsort`) and
 the colsort2 and routed kernels against cuSPARSE on the card, with every
-working set out of L2.
+working set out of L2; with `--spmm`, the SpMM kernels.
 
     python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles [--sweep] [--rails]
+    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles --spmm [--k 3,16,128]
     python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles --turns N \
-        [--against TREE] "MATRIX|PLAN[|PLAN]" ...
+        [--against TREE] "MATRIX[ k=K]|PLAN[|PLAN]" ...
 
 The matrices are those of `PERF.md` rows 4, 6, 7, 8 and 12: poisson5pt
 1000x1000 f32, the skewed 1M-row matrix (Pareto row lengths of 1 to 4096,
@@ -31,6 +32,16 @@ PYTHONPATH).  The last line is a JSON record of every row.  Needs one CUDA
 card.  chip_smoke.py takes its skewed matrix and its L2-cold lines from
 here.
 
+`--spmm` times the SpMM kernels on blocks X (n, k) of f32, for each k of
+`--k` (default 3, 16 and 128): the DIA SpMM (`PERF.md` row 3) on
+poisson5pt 1000x1000 as DIA, its band twin (row 11) on band 0 of four of
+the same matrix (the banded via_dia plan's block apply), and the COO SpMM
+(row 6') and the colsort2 SpMM (row 7, the SpMV rows' two plans) on
+poisson5pt 1000x1000 and the skewed 1M; at k = 16 also the binned SpMM
+(row 5') and the routed SpMM (row 8, the SpMV rows' plans).  Each beside cuSPARSE on the same X and its
+bound: the matrix once (DIA: its padded diagonals), X read and Y written
+once.
+
 `--turns N` times pairs of plans in N rounds, L2-cold device ms (a graph's
 replay) of each, the order swapped each round, and prints each pair's
 medians and the rounds the second plan won.  "MATRIX|A|B" pairs plans A
@@ -54,17 +65,32 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cusp_autotuned_tpu_torch.benchmarks import harness
+from cusp_autotuned_tpu_torch.kernels.binned import build_binned
 from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort
 from cusp_autotuned_tpu_torch.kernels.colsort2 import build_colsort2
 from cusp_autotuned_tpu_torch.kernels.csr import build_csr
+from cusp_autotuned_tpu_torch.kernels.dia import build_dia
 from cusp_autotuned_tpu_torch.kernels.routed import build_routed
 from cusp_autotuned_tpu_torch.utils.exceptions import FormatConversionException
 
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM data sheet, 700 W
 BANDS = 4                           # the mesh path's bands of the skewed matrix
 SAMPLES, PER_SAMPLE = 15, 20
+SPMM_K = (3, 16, 128)
+
+
+def on_dia(build_dia):
+    """build_dia for a matrix of any format: the plan function converts
+    it to DIA first."""
+    def build(A, config):
+        from cusp_autotuned_tpu_torch.ops.convert import convert
+        return build_dia(A if A.format == "dia" else convert(A, "dia"), config)
+    return build
+
+
 BUILDERS = {"cuda": build_csr, "colsort": build_colsort,
-            "colsort2": build_colsort2, "routed": build_routed}
+            "colsort2": build_colsort2, "routed": build_routed,
+            "binned": build_binned, "dia": on_dia(build_dia)}
 # the matrices each impl is timed on
 RAIL_MATRICES = ("poisson5pt 1000x1000", "skewed 1M", "Economics", "LP")
 ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
@@ -74,7 +100,17 @@ ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
       "colsort2": RAIL_MATRICES, "routed": RAIL_MATRICES}
 # plans that only --turns times
 TURN_PLANS = {"routed window=4096 block=512": ("routed", {"window": 4096,
-                                                          "block_size": 512})}
+                                                          "block_size": 512}),
+              "dia default": ("dia", {}), "binned default": ("binned", {})}
+# the SpMM plans --spmm times at every k beside the DIA and COO SpMMs, and
+# those it times at k = 16 alone
+SPMM_PLANS = (("colsort2 K=2 V=8", "colsort2", {"vrow_planes": 2, "vrow_len": 8,
+                                                "block_size": 256}),
+              ("colsort2 default", "colsort2", {}))
+SPMM_PLANS_16 = (("binned default", "binned", {}),
+                 ("routed window=4096", "routed", {"window": 4096,
+                                                   "block_size": 256}),
+                 ("routed default", "routed", {}))
 
 
 def skewed(n, seed, device, rows=None):
@@ -166,20 +202,46 @@ def tree_builders(tree):
     sys.path.insert(0, str(tree))
     try:
         k = {m: importlib.import_module(f"{pkg}.kernels.{m}")
-             for m in ("csr", "colsort", "colsort2", "routed")}
+             for m in ("csr", "colsort", "colsort2", "routed", "binned", "dia")}
         return {"cuda": k["csr"].build_csr, "colsort": k["colsort"].build_colsort,
                 "colsort2": k["colsort2"].build_colsort2,
-                "routed": k["routed"].build_routed}
+                "routed": k["routed"].build_routed,
+                "binned": k["binned"].build_binned,
+                "dia": on_dia(k["dia"].build_dia)}
     finally:
         sys.path.remove(str(tree))
         take()
         sys.modules.update(mine)
 
 
+def seeded_input(n, k, device):
+    """The timed x (n,) where k is 0, else a block X (n, k), f32, seed 4."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(n) if k == 0 else rng.randn(n, k)
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def useful_bytes(impl, A, k=0):
+    """The bytes a product must move: the matrix once (CSR for the CSR-based
+    plans, row, column and value an entry for COO, the padded diagonals of
+    A's DIA form for DIA), x read once and y written once (k columns each
+    where k > 0)."""
+    m, n, width = A.num_rows, A.num_cols, max(k, 1)
+    if impl == "dia":
+        from cusp_autotuned_tpu_torch.ops.convert import convert
+        D = A if A.format == "dia" else convert(A, "dia")
+        matrix = D.num_diagonals * D.rows_padded * 4
+    elif impl == "colsort":
+        matrix = A.nnz * 12
+    else:
+        matrix = A.nnz * 8 + (m + 1) * 4
+    return matrix + (n + m) * width * 4
+
+
 def turns(pairs, rounds, against=None):
-    """For each "MATRIX|A[|B]" of `pairs`, the device ms of its two plans,
-    L2-cold, in `rounds` rounds, the order swapped each round; printed with
-    the medians and B's wins, and returned as rows."""
+    """For each "MATRIX[ k=K]|A[|B]" of `pairs`, the device ms of its two
+    plans, L2-cold, in `rounds` rounds, the order swapped each round;
+    printed with the medians and B's wins, and returned as rows."""
     device = torch.device("cuda")
     other = tree_builders(against) if against else None
     labels = {label: (impl, cfg) for label, impl, cfg in plans(True)}
@@ -187,11 +249,12 @@ def turns(pairs, rounds, against=None):
     rows = []
     for spec in pairs:
         name, *pl = spec.split("|")
-        A = matrix(name, device)
-        x = torch.from_numpy(np.random.RandomState(4).randn(A.num_cols)
-                             .astype(np.float32)).to(device)
-        nbytes = A.nnz * 8 + (2 * A.num_rows + 1 + A.num_cols) * 4
+        base, _, k = name.partition(" k=")
+        k = int(k or 0)
+        A = matrix(base, device)
+        x = seeded_input(A.num_cols, k, device)
         (ia, ca), (ib, cb) = labels[pl[0]], labels[pl[-1]]
+        nbytes = useful_bytes(ib, A, k)
         fns = [(other[ia] if len(pl) == 1 else BUILDERS[ia])(A, ca), BUILDERS[ib](A, cb)]
         tags = [f"{against} {pl[0]}" if len(pl) == 1 else pl[0], pl[-1]]
         ref = fns[0](x)
@@ -271,6 +334,99 @@ def plans(sweep, rails_only=False):
     yield "routed default", "routed", {}
 
 
+def timed_row(label, fn, x, nbytes, ref, rows, **keys):
+    """Time the plan fn on x L2-cold, print its line beside the bound and
+    its largest difference from cuSPARSE's product ref, and append it to
+    rows."""
+    err = float((fn(x).double() - ref).abs().max())
+    launched = kernels_a_call(fn, x)
+    dev_ms, call_ms = cold(fn, x, nbytes)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"  {label:22s} {dev_ms:.4f} ms device, {call_ms:.4f} ms a "
+          f"call, {launched} kernels a call; bound {bound:.4f} ms "
+          f"({nbytes} bytes); |y - cuSPARSE's y| {err:.2e}", flush=True)
+    rows.append({**keys, "plan": label, "device_ms": dev_ms, "call_ms": call_ms,
+                 "kernels": launched, "bound_ms": bound, "max_abs_diff": err})
+
+
+def library_row(name, S, x, nbytes, rows, **keys):
+    """cuSPARSE's L2-cold line for S @ x; returns its product in f64."""
+    lib = library_cold(S, x, nbytes)
+    print(f"{name}: cuSPARSE {lib[0]:.4f} ms device, {lib[1]:.4f} ms a call",
+          flush=True)
+    rows.append({**keys, "plan": "cusparse", "device_ms": lib[0],
+                 "call_ms": lib[1]})
+    return (S @ x).double()
+
+
+def band_plan(D, device, bands=BANDS):
+    """Band 0 of `bands` of the banded via_dia plan of the DIA matrix D as a
+    plan on padded blocks (planned_arrays, apply), its rows, and
+    x_prep."""
+    from cusp_autotuned_tpu_torch import parallel
+    from cusp_autotuned_tpu_torch.kernels.dia import dia_band_spmv
+    op = parallel.shard_planned_dia(D, parallel.make_row_mesh([device] * bands))
+    left = -min(0, min(D.offsets))
+    reach = (min(D.offsets), max(D.offsets))
+
+    def apply(arrays, x_pad):
+        return dia_band_spmv(arrays["data"], arrays["offsets"], x_pad, left, 0,
+                             reach)
+
+    def fn(x_pad):
+        return apply(op.arrays[0], x_pad)
+
+    fn.planned_arrays, fn.apply = op.arrays[0], apply
+    return fn, op.arrays[0]["data"].shape[1], op.x_prep
+
+
+def spmm(ks=SPMM_K):
+    """The --spmm rows (see the module's docstring) for each k of ks."""
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+    device = torch.device("cuda")
+    rows = []
+    for name, A in matrices(device):
+        if name not in ("poisson5pt 1000x1000", "skewed 1M"):
+            continue
+        S = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
+                                    size=A.shape)
+        D = convert(A, "dia") if name.startswith("poisson") else None
+        for k in ks:
+            X = seeded_input(A.num_cols, k, device)
+            keys = {"matrix": name, "k": k}
+            print(f"{name}: {A.num_rows} x {A.num_cols}, nnz {A.nnz}, k = {k}",
+                  flush=True)
+            ref = library_row(f"  {name} k={k}", S, X, useful_bytes("cuda", A, k),
+                              rows, **keys)
+            if D is not None:
+                timed_row("dia (row 3)", build_dia(D, {}), X,
+                          useful_bytes("dia", D, k), ref, rows, **keys)
+            timed_row("coo (row 6')", build_colsort(A, {}), X,
+                      useful_bytes("colsort", A, k), ref, rows, **keys)
+            for label, impl, cfg in SPMM_PLANS + (SPMM_PLANS_16 if k == 16 else ()):
+                timed_row(label, BUILDERS[impl](A, cfg), X,
+                          useful_bytes(impl, A, k), ref, rows, **keys)
+            if D is not None:
+                band, height, x_prep = band_plan(D, device)
+                span = max(D.offsets) - min(D.offsets)
+                S0 = torch.sparse_csr_tensor(
+                    A.indptr[:height + 1], A.col[:int(A.indptr[height])],
+                    A.val[:int(A.indptr[height])].float(), size=(height, A.num_cols))
+                nbytes = (D.num_diagonals * height * 4
+                          + (2 * height + span) * k * 4)
+                keys["matrix"] = f"{name} band 0 of {BANDS}"
+                ref = library_row(f"  {keys['matrix']} k={k}", S0, X, nbytes,
+                                  rows, **keys)
+                timed_row("dia band (row 11)", band, x_prep(X), nbytes, ref, rows,
+                          **keys)
+                del band, S0
+            del X, ref
+            torch.cuda.empty_cache()
+        del A, S, D
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -290,25 +446,24 @@ def main(argv=None):
         rows = turns(rest, rounds, against)
         print(json.dumps({"card": card, "turns": rows}), flush=True)
         return rows
+    if "--spmm" in argv:
+        ks = SPMM_K
+        if "--k" in argv:
+            ks = tuple(int(k) for k in argv[argv.index("--k") + 1].split(","))
+        rows = spmm(ks)
+        print(json.dumps({"card": card, "rows": rows}), flush=True)
+        return rows
     sweep, rails_only = "--sweep" in argv, "--rails" in argv
     timed = list(plans(sweep, rails_only))
     rows = []
     for name, A in matrices(device):
         if not any(name in ON[impl] for _, impl, _ in timed):
             continue
-        m, n, nnz = A.num_rows, A.num_cols, A.nnz
-        x = torch.from_numpy(np.random.RandomState(4).randn(n).astype(np.float32)
-                             ).to(device)
-        csr_bytes = nnz * 8 + (2 * m + 1 + n) * 4
-        coo_bytes = nnz * 12 + (n + m) * 4
+        x = seeded_input(A.num_cols, 0, device)
         S = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
                                     size=A.shape)
-        lib = library_cold(S, x, csr_bytes)
-        print(f"{name}: {m} x {n}, nnz {nnz}; cuSPARSE {lib[0]:.4f} ms device, "
-              f"{lib[1]:.4f} ms a call", flush=True)
-        rows.append({"matrix": name, "plan": "cusparse", "device_ms": lib[0],
-                     "call_ms": lib[1]})
-        ref = None
+        ref = library_row(f"{name}: {A.num_rows} x {A.num_cols}, nnz {A.nnz}", S,
+                          x, useful_bytes("cuda", A), rows, matrix=name)
         for label, impl, cfg in timed:
             if name not in ON[impl]:
                 continue
@@ -317,20 +472,7 @@ def main(argv=None):
             except FormatConversionException as e:
                 print(f"  {label:22s} refused: {str(e)[:100]}", flush=True)
                 continue
-            nbytes = coo_bytes if impl == "colsort" else csr_bytes
-            y = fn(x)
-            if ref is None:
-                ref = (S @ x).double()
-            err = float((y.double() - ref).abs().max())
-            launched = kernels_a_call(fn, x)
-            dev_ms, call_ms = cold(fn, x, nbytes)
-            bound = nbytes / PEAK_BYTES_PER_S * 1e3
-            print(f"  {label:22s} {dev_ms:.4f} ms device, {call_ms:.4f} ms a "
-                  f"call, {launched} kernels a call; bound {bound:.4f} ms "
-                  f"({nbytes} bytes); |y - cuSPARSE's y| {err:.2e}", flush=True)
-            rows.append({"matrix": name, "plan": label, "device_ms": dev_ms,
-                         "call_ms": call_ms, "kernels": launched,
-                         "bound_ms": bound, "max_abs_diff": err})
+            timed_row(label, fn, x, useful_bytes(impl, A), ref, rows, matrix=name)
             del fn
         del A, S, x, ref
         torch.cuda.empty_cache()

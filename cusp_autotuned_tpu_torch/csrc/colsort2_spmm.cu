@@ -5,159 +5,276 @@
 // Replaces the JAX package's colsort2 Pallas kernel at its SpMM site,
 // _v2_kernel (kernels/pallas_colsort2.py:519, launched at K > 0 from :883,
 // the k columns of a VMEM chunk looped inside the kernel).  It walks the
-// SpMV's plan (colsort2_spmv.cu): a row of at most thr entries is K
-// virtual rows of at most V entries, and rows above thr are hub rows cut
-// into virtual rows of at most 128 entries.  Lanes run over a tile of X's
-// columns, as in binned_spmm.cu: a team of `tile` lanes, tile the least
-// power of two >= k capped at 32, spans the columns, and each lane walks the
-// team's virtual row in entry order for its column, so an entry's value and
-// column index are one broadcast load for the team and the lanes read
-// `tile` consecutive values of a row of X.
+// SpMV's plan (colsort2_spmv.cu): a row of at most thr entries is summed
+// plane by plane (plane p: its entries [p V, (p + 1) V)), the planes
+// folded in order, and rows above thr are hub rows cut into virtual rows of
+// at most 128 entries, folded per row in order by a second kernel.  The
+// first kernel had a team of min(32, next_pow2(k)) lanes for each (row,
+// plane), every lane a 4-byte load of X per entry and every team a
+// broadcast load of each entry.  Now the columns follow the DIA SpMM's
+// schedule (kernels/dia.py spmm_schedule): a lane takes C columns with
+// 16-byte loads and stores where k and the alignment allow, all k columns
+// where k <= 4, a team of T lanes a tile of T C columns, the grid's second
+// dimension the tiles past it:
 //
-//   * main: the K teams of a row sit side by side in one block; their sums
-//     go to shared memory and the plane-0 team folds them column by column
-//     in plane order, writing each (row, column) of Y once;
-//   * hub: a team per (hub virtual row, column tile) writes the virtual
-//     row's partial sums, and a fold kernel adds each hub row's virtual rows
-//     in order, one thread per (hub row, column).
+//   * main: a warp's G = 32 / T teams take G consecutive rows, a team a
+//     row.  The warp loads the main rows' entries together, coalesced, 128
+//     at a time into shared memory (as csrc/rail_rows.cuh loads a warp's
+//     rows: by the offset where no hub row lies among them, else by a
+//     search over the teams' starts), and each team walks its row's entries
+//     from there in order, one plane's sum at a time, adding each plane to
+//     the row's total as it closes: the plain version's order;
+//   * hub: a team per (hub virtual row, column tile) loads the virtual
+//     row's entries T at a time, a lane each, and walks them in order from
+//     its lanes' registers by shuffles; a fold kernel adds each hub row's
+//     virtual rows in order, a thread per (hub row, column) indexed by
+//     shifts.
 //
-// No atomics: the same result on every run.  Bound by bytes: per entry a
-// value and a column index per column tile, the gathered rows of X (through
-// L2), Y written once.  Row and element offsets of X and Y are 64-bit.
+// Every row of Y is written (a main row by its team, a hub row by the
+// fold), so Y needs no fill.  No atomics: the same result on every run.
+// Bound by bytes: per entry a value and a column index, the gathered rows of
+// X (through L2), Y written once.  Row and element offsets of X and Y are
+// 64-bit.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxBlock = 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSlots = 128;          // entries a warp loads at a time
 
-template <typename Store, typename Acc>
+template <typename Store, typename Acc, int W, int C>
 __global__ void colsort2_spmm_main_kernel(const int* __restrict__ indptr,
                                           const int* __restrict__ col,
                                           const Store* __restrict__ val,
                                           const Acc* __restrict__ x,
                                           Acc* __restrict__ y, int m, int k,
-                                          int K, int V, int thr, int tile) {
-  __shared__ Acc part[kMaxBlock];
-  const int rows = static_cast<int>(blockDim.x) / (K * tile);
-  const int team = static_cast<int>(threadIdx.x) / tile;
-  const int lane = static_cast<int>(threadIdx.x) & (tile - 1);
-  const int plane = team % K;
-  const int rl = team / K;
-  const long long r = static_cast<long long>(blockIdx.x) * rows + rl;
-  const int c = static_cast<int>(blockIdx.y) * tile + lane;
-  bool own = false;
-  int start = 0, stop = 0;
-  if (rl < rows && r < m) {
-    start = indptr[r];
-    stop = indptr[r + 1];
-    own = stop - start <= thr;
+                                          int V, int thr, int team_shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* const s_col = reinterpret_cast<int*>(smem) + warp * kSlots;
+  Acc* const s_val = reinterpret_cast<Acc*>(
+                         smem + (blockDim.x >> 5) * kSlots * sizeof(int)) +
+                     warp * kSlots;
+  const int T = 1 << team_shift;
+  const int team = lane >> team_shift, tl = lane & (T - 1);
+  const int G = 32 >> team_shift;
+  const long long r =
+      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * G + team;
+  const int c0 = ((static_cast<int>(blockIdx.y) << team_shift) + tl) * C;
+  const bool mine = c0 < k;
+  int start = 0, len = 0;
+  bool main_row = false;
+  if (r < m) {
+    start = __ldg(indptr + r);
+    len = __ldg(indptr + r + 1) - start;
+    main_row = len <= thr;
   }
-  Acc acc = 0;
-  if (own && c < k) {
-    const int lo = start + plane * V;
-    const int hi = min(stop, lo + V);
-    for (int e = lo; e < hi; ++e)
-      acc += to_acc<Acc>(val[e]) * x[static_cast<long long>(col[e]) * k + c];
+  // the main rows' entries, packed: team t's at [first, first + ls) of the
+  // warp's exclusive scan
+  const int ls = main_row ? len : 0;
+  int incl = ls;
+  for (int off = 1; off < G; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, incl, off << team_shift);
+    if (team >= off) incl += o;
   }
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (own && plane == 0 && c < k) {
-    Acc total = 0;
-    for (int p = 0; p < K; ++p) total += part[(rl * K + p) * tile + lane];
-    y[r * k + c] = total;
+  const int first = incl - ls;
+  const int total = __shfl_sync(kFull, incl, 31);
+  // no hub row with entries among the warp's rows: the packed entries are
+  // the stored ones from the first row's start
+  const bool gapless = !__any_sync(kFull, r < m && !main_row && len > 0);
+  const int s0 = __shfl_sync(kFull, start, 0);
+
+  Acc acc[C], sum[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = sum[c] = 0;
+  int left = V;                       // entries the open plane still takes
+  for (int base = 0; base < total; base += kSlots) {
+#pragma unroll
+    for (int q = 0; q < kSlots / 32; ++q) {
+      const int i = base + q * 32 + lane;
+      // the team that holds packed entry i: the last whose first is <= i
+      int t = 0;
+      if (!gapless)
+        for (int step = G >> 1; step > 0; step >>= 1) {
+          const int f = __shfl_sync(kFull, first, (t + step) << team_shift);
+          if (f <= i) t += step;
+        }
+      const int ft = __shfl_sync(kFull, first, t << team_shift);
+      const int st = __shfl_sync(kFull, start, t << team_shift);
+      if (i < total) {
+        const long long e = gapless ? static_cast<long long>(s0) + i
+                                    : static_cast<long long>(st) + (i - ft);
+        s_col[q * 32 + lane] = __ldg(col + e);
+        s_val[q * 32 + lane] = to_acc<Acc>(val[e]);
+      }
+    }
+    __syncwarp();
+    const int lo = max(first, base), hi = min(first + ls, base + kSlots);
+    for (int i = lo; i < hi; i += 4) {   // four rows of X in flight
+      const int n4 = min(4, hi - i);
+      Acc a4[4], xv[4][C];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < n4) {
+          a4[q] = s_val[i + q - base];
+          if (mine)
+            load_cols<Acc, W, C>(
+                x + static_cast<long long>(s_col[i + q - base]) * k + c0, xv[q]);
+        }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q >= n4) break;
+        if (mine) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = fma_rn(a4[q], xv[q][c], acc[c]);
+        }
+        if (--left == 0) {            // the plane closes: fold it in order
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            sum[c] += acc[c];
+            acc[c] = 0;
+          }
+          left = V;
+        }
+      }
+    }
+    __syncwarp();
+  }
+  if (main_row && mine) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) sum[c] += acc[c];
+    store_cols<Acc, W, C>(y + r * k + c0, sum);
   }
 }
 
-// a team of `tile` lanes per (hub virtual row, column tile):
-// part[v, c] = sum over entries [lo[v], hi[v]) of val * X[col, c]
-template <typename Store, typename Acc>
+// A team of T lanes per (hub virtual row, column tile): part[v, c] = sum
+// over entries [lo[v], hi[v]) of val * X[col, c], in entry order.
+template <typename Store, typename Acc, int W, int C>
 __global__ void colsort2_spmm_hub_kernel(const int* __restrict__ col,
                                          const Store* __restrict__ val,
                                          const Acc* __restrict__ x,
                                          const int* __restrict__ lo,
                                          const int* __restrict__ hi, int nv,
-                                         int k, int tile,
+                                         int k, int team_shift,
                                          Acc* __restrict__ part) {
-  const long long v = static_cast<long long>(blockIdx.x) * (blockDim.x / tile) +
-                      threadIdx.x / tile;
-  const int c = static_cast<int>(blockIdx.y) * tile + (threadIdx.x & (tile - 1));
-  if (v >= nv || c >= k) return;
-  Acc acc = 0;
-  for (int e = lo[v]; e < hi[v]; ++e)
-    acc += to_acc<Acc>(val[e]) * x[static_cast<long long>(col[e]) * k + c];
-  part[v * k + c] = acc;
+  const int T = 1 << team_shift;
+  const int tl = threadIdx.x & (T - 1);
+  const long long v = static_cast<long long>(blockIdx.x) * (blockDim.x >> team_shift) +
+                      (threadIdx.x >> team_shift);
+  const int c0 = ((static_cast<int>(blockIdx.y) << team_shift) + tl) * C;
+  // the teams of a warp stay together for the shuffles: a team past nv
+  // walks an empty range
+  const int b = v < nv ? __ldg(lo + v) : 0, e_end = v < nv ? __ldg(hi + v) : 0;
+  const unsigned mask = T == 32 ? kFull
+                                : ((1u << T) - 1) << (threadIdx.x & 31 & ~(T - 1));
+  Acc acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0;
+  for (int e0 = b; e0 < e_end; e0 += T) {
+    const int e = e0 + tl;
+    const int ce = e < e_end ? __ldg(col + e) : 0;
+    const Acc ve = e < e_end ? to_acc<Acc>(val[e]) : Acc(0);
+    const int n_here = min(T, e_end - e0);
+    for (int j = 0; j < n_here; ++j) {
+      const int cj = __shfl_sync(mask, ce, j, T);
+      const Acc vj = __shfl_sync(mask, ve, j, T);
+      if (c0 < k) {
+        Acc xv[C];
+        load_cols<Acc, W, C>(x + static_cast<long long>(cj) * k + c0, xv);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = fma_rn(vj, xv[c], acc[c]);
+      }
+    }
+  }
+  if (v < nv && c0 < k) store_cols<Acc, W, C>(part + v * k + c0, acc);
 }
 
-// one thread per (hub row, column): its virtual rows in order
+// A thread per (hub row, column): slot blockIdx.x * (block >> col_shift) +
+// threadIdx.x >> col_shift, column blockIdx.y << col_shift | the rest; its
+// virtual rows in order.
 template <typename Acc>
 __global__ void colsort2_spmm_hub_fold_kernel(const Acc* __restrict__ part,
                                               const int* __restrict__ rows,
                                               const int* __restrict__ ptr,
-                                              int nh, int k,
+                                              int nh, int k, int col_shift,
                                               Acc* __restrict__ y) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(nh) * k) return;
-  const long long h = i / k;
-  const int c = static_cast<int>(i - h * k);
+  const long long h = static_cast<long long>(blockIdx.x) * (blockDim.x >> col_shift) +
+                      (threadIdx.x >> col_shift);
+  const int c = (static_cast<int>(blockIdx.y) << col_shift) +
+                (threadIdx.x & ((1 << col_shift) - 1));
+  if (h >= nh || c >= k) return;
   Acc total = 0;
   for (int v = ptr[h]; v < ptr[h + 1]; ++v) total += part[static_cast<long long>(v) * k + c];
   y[static_cast<long long>(rows[h]) * k + c] = total;
 }
 
-int tile_of(int k) {
-  int tile = 1;
-  while (tile < k && tile < 32) tile <<= 1;
-  return tile;
+bool tiles_of(int k, int cols, int team_shift, long long* tiles) {
+  if (k < 1 || cols < 1 || team_shift < 0 || team_shift > 5) return false;
+  const long long span = static_cast<long long>(cols) << team_shift;
+  *tiles = (k + span - 1) / span;
+  return *tiles <= 65535;
 }
 
 template <typename Store, typename Acc>
 int launch_main(const void* indptr, const void* col, const void* val,
-                const void* x, void* y, int m, int k, int K, int V, int thr,
-                int block, void* stream) {
-  if (k < 1 || K < 1 || V < 1 || block % 32 != 0 || block > kMaxBlock)
+                const void* x, void* y, int m, int k, int V, int thr, int width,
+                int cols, int team_shift, int block, void* stream) {
+  long long tiles;
+  if (V < 1 || block % 32 != 0 || block < 32 || block > 1024 ||
+      !tiles_of(k, cols, team_shift, &tiles))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tile = tile_of(k);
-  if (K * tile > block) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = block / (K * tile);
+  const long long rows = static_cast<long long>(block >> 5) << (5 - team_shift);
   const long long blocks = (static_cast<long long>(m) + rows - 1) / rows;
-  const long long ntiles = (k + tile - 1) / tile;
   if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL || ntiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  colsort2_spmm_main_kernel<Store, Acc>
-      <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(ntiles)), block, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(indptr), static_cast<const int*>(col),
-          static_cast<const Store*>(val), static_cast<const Acc*>(x),
-          static_cast<Acc*>(y), m, k, K, V, thr, tile);
-  return static_cast<int>(cudaGetLastError());
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(block >> 5) * kSlots *
+                      (sizeof(int) + sizeof(Acc));
+  return with_width<Acc>(width, cols, [&](auto w, auto c) {
+    colsort2_spmm_main_kernel<Store, Acc, decltype(w)::value, decltype(c)::value>
+        <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles)),
+           block, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(indptr), static_cast<const int*>(col),
+            static_cast<const Store*>(val), static_cast<const Acc*>(x),
+            static_cast<Acc*>(y), m, k, V, thr, team_shift);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename Store, typename Acc>
 int launch_hub(const void* col, const void* val, const void* x, const void* lo,
                const void* hi, int nv, const void* rows, const void* ptr,
-               int nh, void* part, void* y, int k, int block, void* stream) {
-  if (k < 1 || block % 32 != 0 || block > kMaxBlock)
+               int nh, void* part, void* y, int k, int width, int cols,
+               int team_shift, int block, void* stream) {
+  long long tiles;
+  if (block % 32 != 0 || block < 32 || block > 1024 ||
+      !tiles_of(k, cols, team_shift, &tiles))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nv == 0 || nh == 0) return 0;
-  const int tile = tile_of(k);
-  const long long teams = block / tile;
+  const long long teams = block >> team_shift;
   const long long blocks = (nv + teams - 1) / teams;
-  const long long ntiles = (k + tile - 1) / tile;
-  const long long items = static_cast<long long>(nh) * k;
-  if (ntiles > 65535 || (items + block - 1) / block > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
+  int col_shift = 0;
+  while ((1 << col_shift) < k && col_shift < 5) ++col_shift;
+  const long long fold_blocks =
+      (nh + (block >> col_shift) - 1) / (block >> col_shift);
+  const long long fold_tiles = (k + (1 << col_shift) - 1) >> col_shift;
+  if (fold_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  colsort2_spmm_hub_kernel<Store, Acc>
-      <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(ntiles)), block, 0, s>>>(
-          static_cast<const int*>(col), static_cast<const Store*>(val),
-          static_cast<const Acc*>(x), static_cast<const int*>(lo),
-          static_cast<const int*>(hi), nv, k, tile, static_cast<Acc*>(part));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = with_width<Acc>(width, cols, [&](auto w, auto c) {
+    colsort2_spmm_hub_kernel<Store, Acc, decltype(w)::value, decltype(c)::value>
+        <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles)),
+           block, 0, s>>>(
+            static_cast<const int*>(col), static_cast<const Store*>(val),
+            static_cast<const Acc*>(x), static_cast<const int*>(lo),
+            static_cast<const int*>(hi), nv, k, team_shift,
+            static_cast<Acc*>(part));
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0) return err;
   colsort2_spmm_hub_fold_kernel<Acc>
-      <<<static_cast<unsigned>((items + block - 1) / block), block, 0, s>>>(
+      <<<dim3(static_cast<unsigned>(fold_blocks), static_cast<unsigned>(fold_tiles)),
+         block, 0, s>>>(
           static_cast<const Acc*>(part), static_cast<const int*>(rows),
-          static_cast<const int*>(ptr), nh, k, static_cast<Acc*>(y));
+          static_cast<const int*>(ptr), nh, k, col_shift, static_cast<Acc*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,51 +283,54 @@ int launch_hub(const void* col, const void* val, const void* x, const void* lo,
 extern "C" {
 
 int cusp_colsort2_spmm_f32(const void* indptr, const void* col, const void* val,
-                           const void* x, void* y, int m, int k, int K, int V,
-                           int thr, int block, void* stream) {
-  return launch_main<float, float>(indptr, col, val, x, y, m, k, K, V, thr,
-                                   block, stream);
-}
-
-int cusp_colsort2_spmm_bf16(const void* indptr, const void* col, const void* val,
-                            const void* x, void* y, int m, int k, int K, int V,
-                            int thr, int block, void* stream) {
-  return launch_main<__nv_bfloat16, float>(indptr, col, val, x, y, m, k, K, V,
-                                           thr, block, stream);
-}
-
-int cusp_colsort2_spmm_f64(const void* indptr, const void* col, const void* val,
-                           const void* x, void* y, int m, int k, int K, int V,
-                           int thr, int block, void* stream) {
-  return launch_main<double, double>(indptr, col, val, x, y, m, k, K, V, thr,
-                                     block, stream);
+                           const void* x, void* y, int m, int k, int V, int thr,
+                           int width, int cols, int team_shift, int block,
+                           void* stream) {
+  return launch_main<float, float>(indptr, col, val, x, y, m, k, V, thr, width,
+                                 cols, team_shift, block, stream);
 }
 
 int cusp_colsort2_hub_spmm_f32(const void* col, const void* val, const void* x,
                                const void* lo, const void* hi, int nv,
                                const void* rows, const void* ptr, int nh,
-                               void* part, void* y, int k, int block,
-                               void* stream) {
-  return launch_hub<float, float>(col, val, x, lo, hi, nv, rows, ptr, nh, part,
-                                  y, k, block, stream);
+                               void* part, void* y, int k, int width, int cols,
+                               int team_shift, int block, void* stream) {
+  return launch_hub<float, float>(col, val, x, lo, hi, nv, rows, ptr, nh, part, y,
+                                k, width, cols, team_shift, block, stream);
+}
+
+int cusp_colsort2_spmm_bf16(const void* indptr, const void* col, const void* val,
+                           const void* x, void* y, int m, int k, int V, int thr,
+                           int width, int cols, int team_shift, int block,
+                           void* stream) {
+  return launch_main<__nv_bfloat16, float>(indptr, col, val, x, y, m, k, V, thr, width,
+                                 cols, team_shift, block, stream);
 }
 
 int cusp_colsort2_hub_spmm_bf16(const void* col, const void* val, const void* x,
-                                const void* lo, const void* hi, int nv,
-                                const void* rows, const void* ptr, int nh,
-                                void* part, void* y, int k, int block,
-                                void* stream) {
-  return launch_hub<__nv_bfloat16, float>(col, val, x, lo, hi, nv, rows, ptr,
-                                          nh, part, y, k, block, stream);
+                               const void* lo, const void* hi, int nv,
+                               const void* rows, const void* ptr, int nh,
+                               void* part, void* y, int k, int width, int cols,
+                               int team_shift, int block, void* stream) {
+  return launch_hub<__nv_bfloat16, float>(col, val, x, lo, hi, nv, rows, ptr, nh, part, y,
+                                k, width, cols, team_shift, block, stream);
+}
+
+int cusp_colsort2_spmm_f64(const void* indptr, const void* col, const void* val,
+                           const void* x, void* y, int m, int k, int V, int thr,
+                           int width, int cols, int team_shift, int block,
+                           void* stream) {
+  return launch_main<double, double>(indptr, col, val, x, y, m, k, V, thr, width,
+                                 cols, team_shift, block, stream);
 }
 
 int cusp_colsort2_hub_spmm_f64(const void* col, const void* val, const void* x,
                                const void* lo, const void* hi, int nv,
                                const void* rows, const void* ptr, int nh,
-                               void* part, void* y, int k, int block,
-                               void* stream) {
-  return launch_hub<double, double>(col, val, x, lo, hi, nv, rows, ptr, nh,
-                                    part, y, k, block, stream);
+                               void* part, void* y, int k, int width, int cols,
+                               int team_shift, int block, void* stream) {
+  return launch_hub<double, double>(col, val, x, lo, hi, nv, rows, ptr, nh, part, y,
+                                k, width, cols, team_shift, block, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// The DIA SpMM probe: dia_spmm_kernel (dia_spmm.cu) and three variants of
-// it, to find what holds the DIA SpMM at a quarter of the triad's rate.
+// The DIA SpMM probe: dia_spmm_kernel (dia_spmm.cu) and variants of it, to
+// find what holds the DIA SpMM kernel (first at a quarter of the triad's
+// rate).
 //
 // Replaces the JAX package's Pallas probe _kernel
 // (benchmarks/dia_spmm_probe.py:29, launched at :68), which set a
@@ -11,8 +12,9 @@
 // function, each element's diagonals summed in offset order with the same
 // FMAs, so its output equals the shipped kernel's bit for bit:
 //
-//   kShipped  dia_spmm_kernel's body, unchanged: a team of min(32,
-//             next_pow2(k)) lanes spans a tile of columns of one row;
+//   kShipped  dia_spmm_kernel's body (dia_spmm_body.cuh) at the W, C, R
+//             and team the wrapper gives: the shipped schedule, or the
+//             shipped one with R rows a lane (rows=R, R = 1, 2 or 4);
 //   kTeam     a warp a row, each lane taking T / 32 consecutive columns
 //             (T = 32, 64 or 128), with 8- or 16-byte loads and stores
 //             where k is a multiple of T / 32;
@@ -27,12 +29,13 @@
 //             of shared memory a block, so it stages clusters.  Shared
 //             memory is at most 2 R CT 4 bytes = 64 B a thread (64 KB at
 //             1024 threads), set above the default 48 KB once;
-//   kNoData   the shipped body with coefficients 1: no data stream.
+//   kNoData   the shipped body and schedule with coefficients 1: no data
+//             stream.
 //
 // Bound by bytes, as the shipped kernel: ndiag m 4 bytes of diagonal data,
 // X read once (n k 4) and Y written once (m k 4).  Element offsets of X
 // and Y are 64-bit: 1M rows at k = 128 is 512 MB, and n k passes 2^31.
-#include "common.cuh"
+#include "dia_spmm_body.cuh"
 
 namespace {
 
@@ -40,31 +43,6 @@ enum Mode { kShipped = 0, kTeam = 1, kXTile = 2, kNoData = 3 };
 constexpr int kXTileRows = 8;              // rows a thread owns in kXTile
 constexpr int kMaxBlock = 1024;
 constexpr int kMaxSmem = 2 * kMaxBlock * kXTileRows * 4;
-
-// The shipped body (kNoData: coefficients 1).
-template <bool NoData>
-__device__ __forceinline__ void shipped_body(const float* __restrict__ data,
-                                             const int* __restrict__ offsets,
-                                             int ndiag, long long pitch,
-                                             const float* __restrict__ x,
-                                             float* __restrict__ y, int m, int n,
-                                             int k, int tile_shift) {
-  const int tile = 1 << tile_shift;
-  const long long i = static_cast<long long>(blockIdx.x) * (blockDim.x >> tile_shift) +
-                      (threadIdx.x >> tile_shift);
-  const int c = static_cast<int>(blockIdx.y) * tile + (threadIdx.x & (tile - 1));
-  if (i >= m || c >= k) return;
-  float acc = 0;
-  for (int d = 0; d < ndiag; ++d) {
-    const long long j = i + __ldg(offsets + d);
-    if (NoData) {
-      if (j >= 0 && j < n) acc += x[j * k + c];
-    } else {
-      if (j >= 0 && j < n) acc += to_acc<float>(data[d * pitch + i]) * x[j * k + c];
-    }
-  }
-  y[i * k + c] = acc;
-}
 
 template <int V>
 struct Vec;
@@ -182,9 +160,10 @@ __device__ __forceinline__ void xtile_body(const float* __restrict__ data,
 }
 
 // One kernel name for every mode, so that a trace finds each launch under
-// it: M the mode, V the columns a lane takes in kTeam, shift the log2 of the
-// team (kShipped, kNoData) or column tile (kXTile).
-template <int M, int V>
+// it: M the mode; in kShipped and kNoData the body's W, C and R, and shift
+// the log2 of the team; V the columns a lane takes in kTeam; in kXTile
+// shift the log2 of the column tile.
+template <int M, int V, int W = 1, int C = 1, int R = 1>
 __global__ void dia_spmm_probe_kernel(const float* __restrict__ data,
                                       const int* __restrict__ offsets,
                                       int ndiag, long long pitch,
@@ -192,12 +171,43 @@ __global__ void dia_spmm_probe_kernel(const float* __restrict__ data,
                                       float* __restrict__ y, int m, int n,
                                       int k, int shift) {
   extern __shared__ float xs[];
-  if constexpr (M == kShipped || M == kNoData)
-    shipped_body<M == kNoData>(data, offsets, ndiag, pitch, x, y, m, n, k, shift);
-  else if constexpr (M == kTeam)
+  if constexpr (M == kShipped || M == kNoData) {
+    long long i0;
+    int c0;
+    if (spmm_owner<C, R>(m, k, shift, &i0, &c0))
+      dia_spmm_rows<float, float, W, C, R, false, M == kNoData>(
+          data, offsets, ndiag, pitch, x, 0, n, y, m, k, i0, c0);
+  } else if constexpr (M == kTeam) {
     team_body<V>(data, offsets, ndiag, pitch, x, y, m, n, k);
-  else
+  } else {
     xtile_body(data, offsets, ndiag, pitch, x, y, m, n, k, shift, xs);
+  }
+}
+
+// The kShipped or kNoData kernel at the runtime (width, cols, rows).
+template <int M>
+int launch_body(const float* data, const int* offsets, int ndiag,
+                long long pitch, const float* x, float* y, int m, int n, int k,
+                int width, int cols, int rows, int team_shift, int block,
+                cudaStream_t stream) {
+  dim3 grid;
+  if (!spmm_grid(m, k, cols, rows, team_shift, block, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_width<float>(width, cols, [&](auto w, auto c) {
+    constexpr int W = decltype(w)::value, C = decltype(c)::value;
+    if (rows == 1)
+      dia_spmm_probe_kernel<M, 1, W, C, 1><<<grid, block, 0, stream>>>(
+          data, offsets, ndiag, pitch, x, y, m, n, k, team_shift);
+    else if (rows == 2)
+      dia_spmm_probe_kernel<M, 1, W, C, 2><<<grid, block, 0, stream>>>(
+          data, offsets, ndiag, pitch, x, y, m, n, k, team_shift);
+    else if (rows == 4)
+      dia_spmm_probe_kernel<M, 1, W, C, 4><<<grid, block, 0, stream>>>(
+          data, offsets, ndiag, pitch, x, y, m, n, k, team_shift);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int shift_for(int k, int cap_shift) {
@@ -217,8 +227,9 @@ int grid_ok(long long blocks, long long tiles, dim3* grid) {
 extern "C" int cusp_dia_spmm_probe_f32(const void* data_, const void* offsets_,
                                        int ndiag, long long pitch,
                                        const void* x_, void* y_, int m, int n,
-                                       int k, int mode, int team, int block,
-                                       void* stream_) {
+                                       int k, int mode, int team, int width,
+                                       int cols, int rows, int team_shift,
+                                       int block, void* stream_) {
   if (k < 1 || block % 32 != 0 || block < 32 || block > kMaxBlock)
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return 0;
@@ -229,16 +240,9 @@ extern "C" int cusp_dia_spmm_probe_f32(const void* data_, const void* offsets_,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   dim3 grid;
   if (mode == kShipped || mode == kNoData) {
-    const int shift = shift_for(k, 5);
-    const long long rows = block >> shift;
-    if (!grid_ok((m + rows - 1) / rows, (k + (1 << shift) - 1) >> shift, &grid))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (mode == kShipped)
-      dia_spmm_probe_kernel<kShipped, 1><<<grid, block, 0, stream>>>(
-          data, offsets, ndiag, pitch, x, y, m, n, k, shift);
-    else
-      dia_spmm_probe_kernel<kNoData, 1><<<grid, block, 0, stream>>>(
-          data, offsets, ndiag, pitch, x, y, m, n, k, shift);
+    return (mode == kShipped ? launch_body<kShipped> : launch_body<kNoData>)(
+        data, offsets, ndiag, pitch, x, y, m, n, k, width, cols, rows,
+        team_shift, block, stream);
   } else if (mode == kTeam) {
     if (team != 32 && team != 64 && team != 128)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -42,9 +42,10 @@ _SIGNATURES = {
     # data, offsets, k, pitch, x_pad, left, row0, y, band, block, stream
     "cusp_dia_band_spmv": ((_vp, _vp, _i32, _i64, _vp, _i64, _i64, _vp, _i32,
                             _i32, _vp), _TYPED),
-    # data, offsets, ndiag, pitch, X_pad, left, row0, Y, band, k, block, stream
+    # data, offsets, ndiag, pitch, X_pad, left, row0, Y, band, k, width, cols,
+    # rows, team_shift, block, stream
     "cusp_dia_band_spmm": ((_vp, _vp, _i32, _i64, _vp, _i64, _i64, _vp, _i32,
-                            _i32, _i32, _vp), _TYPED),
+                            _i32, _i32, _i32, _i32, _i32, _i32, _vp), _TYPED),
     # indptr, col, val, x, y, m, nnz, tile_row, split_tile, split_row,
     # nsplit, carry_row, carry_val, block, stream
     "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i64, _vp, _vp, _vp, _i32,
@@ -55,15 +56,17 @@ _SIGNATURES = {
     # row, col, val, nnz, x, y, m, carry_row, carry_val, vpt, block, stream
     "cusp_coo_spmv": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _vp, _vp, _i32,
                        _i32, _vp), _TYPED),
-    # data, offsets, ndiag, pitch, X, Y, m, n, k, block, stream
+    # data, offsets, ndiag, pitch, X, Y, m, n, k, width, cols, rows,
+    # team_shift, block, stream
     "cusp_dia_spmm": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
-                       _vp), _TYPED),
+                       _i32, _i32, _i32, _i32, _vp), _TYPED),
     # indptr, col, val, perm, bins (host), nbins, X, Y, k, block, stream
     "cusp_binned_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32,
                           _vp), _TYPED),
-    # row, col, val, nnz, X, Y, k, carry_row, carry_val, vpt, block, stream
-    "cusp_coo_spmm": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _vp, _vp, _i32,
-                       _i32, _vp), _TYPED),
+    # row, col, val, nnz, X, Y, m, k, carry_row, carry_val, vpt, width, cols,
+    # team_shift, block, stream
+    "cusp_coo_spmm": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _i32, _vp, _vp,
+                       _i32, _i32, _i32, _i32, _i32, _vp), _TYPED),
     # indptr, col, val, x, y, m, V (0: one plane), thr, long_rows, n_long,
     # block, stream
     "cusp_colsort2_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp,
@@ -71,12 +74,15 @@ _SIGNATURES = {
     # col, val, x, lo, hi, nv, rows, ptr, nh, part, y, block, stream
     "cusp_colsort2_hub": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp,
                            _vp, _i32, _vp), _TYPED),
-    # indptr, col, val, X, Y, m, k, K, V, thr, block, stream
+    # indptr, col, val, X, Y, m, k, V, thr, width, cols, team_shift, block,
+    # stream
     "cusp_colsort2_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
-                            _i32, _i32, _vp), _TYPED),
-    # col, val, X, lo, hi, nv, rows, ptr, nh, part, Y, k, block, stream
+                            _i32, _i32, _i32, _i32, _vp), _TYPED),
+    # col, val, X, lo, hi, nv, rows, ptr, nh, part, Y, k, width, cols,
+    # team_shift, block, stream
     "cusp_colsort2_hub_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32,
-                                _vp, _vp, _i32, _i32, _vp), _TYPED),
+                                _vp, _vp, _i32, _i32, _i32, _i32, _i32, _vp),
+                               _TYPED),
     # indptr, col, val, x, y, m, thr, long_rows, n_long, block, stream
     "cusp_routed_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
                           _vp), _TYPED),
@@ -92,9 +98,11 @@ _SIGNATURES = {
     # data, offsets, k, pitch, x, y, m, n, left, mode, block, stream
     "cusp_dia_probe": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i64, _i32,
                         _i32, _vp), ("f32",)),
-    # data, offsets, ndiag, pitch, X, Y, m, n, k, mode, team, block, stream
+    # data, offsets, ndiag, pitch, X, Y, m, n, k, mode, team, width, cols,
+    # rows, team_shift, block, stream
     "cusp_dia_spmm_probe": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32,
-                             _i32, _i32, _i32, _vp), ("f32",)),
+                             _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
+                            ("f32",)),
     # indptr, col, val, x, y, m, thr, long_rows, n_long, mode, block, stream
     "cusp_routed_probe": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
                            _i32, _vp), ("f32",)),

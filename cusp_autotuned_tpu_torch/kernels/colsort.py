@@ -17,8 +17,10 @@ writes a run, so the plan of such a matrix zero-fills y first.  Long
 rows are long segments, so there is no separate hub pass.  The SpMM
 sites, `_main_spmm_kernel` (:885) and `_hub_spmm_kernel` (:932) from
 :426, :500, :751 and :831, become
-`csrc/coo_spmm.cu`: the same chunks with lanes over a column tile and a
-carry per chunk end per column, folded in order.
+`csrc/coo_spmm.cu`: the same chunks, each warp's split among teams of
+lanes that take C columns of X with 16-byte loads (the DIA SpMM's
+schedule, kernels/dia.py spmm_schedule), a carry per chunk end per column,
+folded in order; it writes every row of Y as the SpMV writes y.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
 from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv_plain
+from cusp_autotuned_tpu_torch.kernels.dia import alignment, spmm_schedule
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -80,7 +83,7 @@ def coo_spmv(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK,
     rows holds no entry) zero-fills y before the launch."""
     row, col, val = a["row"], a["col"], a["val"]
     if x.dim() == 2:
-        return coo_spmm(row, col, val, x, shape, vpt, block)
+        return coo_spmm(a, x, shape, vpt, block, zero_fill)
     if x.dim() != 1:
         raise NotImplementedException(
             "the COO kernels take x of shape (n,) or (n, k)")
@@ -111,25 +114,36 @@ def coo_spmv(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK,
 coo_spmv.launches = 0
 
 
-def coo_spmm(row, col, val, x, shape, vpt=VALUES_PER_THREAD,
-             block=_build.DEFAULT_BLOCK):
-    """Y = A @ X for row-sorted entries and a dense row-major block X (n, k):
-    the plain version on CPU tensors; on CUDA tensors the chunk kernel with
-    lanes over a column tile and the carry fold, a carry per chunk end per
-    column (one launch of the wrapper, two kernels)."""
+def coo_spmm(a, x, shape, vpt=VALUES_PER_THREAD, block=_build.DEFAULT_BLOCK,
+             zero_fill=False):
+    """Y = A @ X through build_colsort's plan `a` and a dense row-major block
+    X (n, k): the plain version on CPU tensors; on CUDA tensors the chunk
+    kernel, a chunk a warp and its teams over C columns, and the carry fold
+    (one launch of the wrapper, two kernels), with the plan's carry_row and
+    a carry per chunk end per column.  The kernels write every row of Y;
+    `zero_fill` (the plan's) zero-fills Y first."""
+    row, col, val = a["row"], a["col"], a["val"]
     m = shape[0]
     if x.device.type == "cpu" and val.device.type == "cpu":
         return coo_spmv_plain(row, col, val, x, m)
     _check(row, col, val, x, shape, 2)
     nnz, k = row.shape[0], x.shape[1]
-    y = torch.zeros((m, k), dtype=x.dtype, device=x.device)
-    if nnz:
-        chunks = -(-nnz // (32 * vpt))
-        carry_row = torch.empty(2 * chunks, dtype=torch.int32, device=x.device)
-        carry_val = torch.empty((2 * chunks, k), dtype=x.dtype, device=x.device)
-        _build.launch("cusp_coo_spmm", val.dtype, x.device, row, col, val, nnz,
-                      x, y, k, carry_row, carry_val, vpt, block)
-        coo_spmm.launches += 1
+    carry_row = a["carry_row"]
+    chunks = -(-nnz // (32 * vpt))
+    if carry_row.shape != (2 * chunks,) or carry_row.dtype != torch.int32 \
+            or carry_row.device != x.device:
+        raise InvalidInputException(
+            f"the plan's carry rows ({tuple(carry_row.shape)} {carry_row.dtype}) "
+            f"are not 2 x {chunks} chunks of {32 * vpt} entries on {x.device}")
+    if not (nnz and m):
+        return torch.zeros((m, k), dtype=x.dtype, device=x.device)
+    y = (torch.zeros if zero_fill else torch.empty)((m, k), dtype=x.dtype,
+                                                    device=x.device)
+    carry_val = torch.empty((2 * chunks, k), dtype=x.dtype, device=x.device)
+    width, cols, _, team_shift = spmm_schedule(k, alignment(x, y), x.element_size())
+    _build.launch("cusp_coo_spmm", val.dtype, x.device, row, col, val, nnz, x, y,
+                  m, k, carry_row, carry_val, vpt, width, cols, team_shift, block)
+    coo_spmm.launches += 1
     return y
 
 

@@ -15,8 +15,11 @@ says: a lane sums a row of at most SHORT_ROW entries, the warp's lanes
 loading the rows' entries together, and a warp sums each longer main row
 (`long_rows`, planned here).  Longer rows form the hub region: virtual
 rows of at most HUB_SPLIT entries, sorted by degree, each summed by a warp
-and folded per row in order by a second small kernel.  The routed rail
-rides the hub kernels alone as its tail (`colsort2_hub`).
+and folded per row in order by a second small kernel.  The SpMM kernels
+take X's columns as the DIA SpMM does (kernels/dia.py `spmm_schedule`: C
+columns a lane with 16-byte loads, a team of lanes a row), the warp loading
+its rows' entries together.  The routed rail rides the hub kernels alone
+as its tail (`colsort2_hub`).
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
-from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
+from cusp_autotuned_tpu_torch.kernels.dia import (
+    _scale, alignment, promoted, spmm_schedule,
+)
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
@@ -169,14 +174,18 @@ colsort2_hub.launches = 0
 
 
 def colsort2_hub_spmm(col, val, hub, x, y, block=_build.DEFAULT_BLOCK):
-    """colsort2_hub for a dense block x (n, k): a team of lanes over a
-    column tile per hub virtual row, then the fold per (hub row, column)."""
+    """colsort2_hub for a dense block x (n, k): a team of lanes over a tile
+    of C-column lanes per hub virtual row (spmm_schedule), then the fold per
+    (hub row, column)."""
     rows, ptr, lo, hi = hub
     if rows.numel():
-        part = torch.empty((lo.numel(), x.shape[1]), dtype=x.dtype, device=x.device)
+        k = x.shape[1]
+        part = torch.empty((lo.numel(), k), dtype=x.dtype, device=x.device)
+        width, cols, _, team_shift = spmm_schedule(k, alignment(x, part),
+                                                   x.element_size())
         _build.launch("cusp_colsort2_hub_spmm", val.dtype, x.device, col, val, x,
-                      lo, hi, lo.numel(), rows, ptr, rows.numel(), part, y,
-                      x.shape[1], block)
+                      lo, hi, lo.numel(), rows, ptr, rows.numel(), part, y, k,
+                      width, cols, team_shift, block)
         colsort2_hub_spmm.launches += 1
     return y
 
@@ -217,8 +226,9 @@ colsort2_spmv.launches = 0
 def colsort2_spmm(indptr, col, val, hub, x, shape, K, V, thr,
                   block=_build.DEFAULT_BLOCK):
     """Y = A @ X through the plan for a dense row-major block X (n, k): the
-    plain version on CPU tensors; on CUDA tensors the SpMM main kernel and,
-    where the plan has hub rows, the SpMM hub pair."""
+    plain version on CPU tensors; on CUDA tensors the SpMM main kernel (a
+    team of lanes a main row, spmm_schedule's C columns a lane) and, where
+    the plan has hub rows, the SpMM hub pair.  Every row of Y is written."""
     m = shape[0]
     if x.device.type == "cpu" and val.device.type == "cpu":
         return colsort2_spmv_plain(indptr, col, val, hub, x, m, K, V, thr)
@@ -226,8 +236,10 @@ def colsort2_spmm(indptr, col, val, hub, x, shape, K, V, thr,
     k = x.shape[1]
     y = torch.empty((m, k), dtype=x.dtype, device=x.device)
     if m:
+        width, cols, _, team_shift = spmm_schedule(k, alignment(x, y),
+                                                   x.element_size())
         _build.launch("cusp_colsort2_spmm", val.dtype, x.device, indptr, col, val,
-                      x, y, m, k, K, V, thr, block)
+                      x, y, m, k, V, thr, width, cols, team_shift, block)
         colsort2_spmm.launches += 1
         colsort2_hub(col, val, hub, x, y, block)
     return y
@@ -267,10 +279,6 @@ def build_colsort2(A, config):
     long = long_rows(indptr, thr)
     lengths = np.diff(np.asarray(indptr, dtype=np.int64))
     one_plane = int(lengths[lengths <= thr].max(initial=0)) <= V
-    if K * 32 > block:
-        raise NotImplementedException(
-            f"vrow_planes {K} needs block_size >= {32 * K}: the SpMM kernel's "
-            f"K teams of a row share one block")
     nnz = A.nnz
     arrays = {"indptr": A.indptr, "col": A.col[:nnz].contiguous(),
               "val": A.val[:nnz].to(plan_value_dtype(config, A.dtype)).contiguous(),

@@ -11,10 +11,14 @@ kernel for every k, `csrc/dia_spmm.cu`.  The banded plan's `_dia_kernel`
 (cusp_autotuned_tpu/parallel/sharded_plans.py:154) becomes the band entry
 points of the same two sources.  All are bound by bytes: ndiag·rows of
 diagonal data in the storage type, plus x read and y written once; see the
-sources for their design.
+sources for their design.  `spmm_schedule` picks the SpMM kernels'
+columns and rows a lane and their load width from k and the blocks'
+alignment (csrc/dia_spmm_body.cuh).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -83,6 +87,46 @@ def _check(data, offsets, x, shape, rank):
         raise InvalidInputException("DIA kernel needs contiguous tensors")
 
 
+# a lane of the SpMM kernels takes whole rows of k <= NARROW columns, and
+# keeps R consecutive rows: ROWS_NARROW at such k, ROWS_WIDE past it
+# (kRowsNarrow and kRowsWide in csrc/dia_spmm.cu).  The probe's rows=R
+# modes chose them on poisson5pt 1000x1000: at k = 3, R = 4 took 1.8x R =
+# 2's time (R = 1 tied); R = 4 tied R = 2 at k = 16 and beat it by 7.5 % at
+# k = 128 (PERF.md §6, row 15)
+NARROW = 4
+ROWS_NARROW, ROWS_WIDE = 2, 4
+
+
+@functools.lru_cache(maxsize=None)
+def spmm_schedule(k, align, itemsize, rows=None):
+    """(width, cols, rows, team_shift) of the DIA SpMM kernels for k columns
+    of X and Y in an accumulation type of `itemsize` bytes, `align` the
+    largest power of two (at most 16) that divides the addresses of both:
+    a lane takes `cols` consecutive columns of `rows` consecutive rows
+    (`rows` given overrides the shipped R) and moves `width` values at a
+    load or store, a team of 1 << team_shift lanes a tile of columns.
+    Where k <= NARROW a lane takes whole rows; past it, 16-byte loads where
+    k and the alignment allow them, else 8-byte, else one value."""
+    def fits(w):           # one value always: a tensor is aligned to its type
+        return w == 1 or (k % w == 0 and align % (w * itemsize) == 0)
+    width = next(w for w in (4, 2, 1) if w * itemsize <= 16 and fits(w))
+    narrow = k <= NARROW
+    cols = k if narrow else width
+    if rows is None:
+        rows = ROWS_NARROW if narrow else ROWS_WIDE
+    lanes = -(-k // cols)
+    return width, cols, rows, min(5, (lanes - 1).bit_length())
+
+
+def alignment(*tensors):
+    """The largest power of two, at most 16, that divides every tensor's
+    address."""
+    bits = 16
+    for t in tensors:
+        bits = min(bits, (t.data_ptr() & -t.data_ptr()) or 16)
+    return bits
+
+
 def dia_spmv(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
     """y = A @ x for a DIA matrix with diagonals `data` (ndiag, pitch) and
     int32 `offsets` (ndiag,).  On CPU tensors this is the plain version; on
@@ -120,7 +164,8 @@ def dia_spmm(data, offsets, x, shape, block=_build.DEFAULT_BLOCK):
     if m:
         _build.launch("cusp_dia_spmm", data.dtype, x.device,
                       data, offsets, data.shape[0], data.shape[1], x, y, m, n,
-                      k, block)
+                      k, *spmm_schedule(k, alignment(x, y), x.element_size()),
+                      block)
         dia_spmm.launches += 1
     return y
 
@@ -221,7 +266,9 @@ def dia_band_spmm(data, offsets, x_pad, left, row0, reach,
     if band:
         _build.launch("cusp_dia_band_spmm", data.dtype, x_pad.device, data,
                       offsets, data.shape[0], data.stride(0), x_pad, left, row0,
-                      y, band, k, block)
+                      y, band, k,
+                      *spmm_schedule(k, alignment(x_pad, y), x_pad.element_size()),
+                      block)
         dia_band_spmm.launches += 1
     return y
 

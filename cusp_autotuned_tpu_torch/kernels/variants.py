@@ -177,8 +177,8 @@ _SPACE_IMPLS = {
     "hyb": ("default", "via_dia", "cuda", "binned"),
 }
 BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
-# colsort2 and routed take the two larger blocks (the SpMM kernels' rows
-# share a block: colsort2's K teams, routed's staged windows)
+# colsort2 and routed take the two larger blocks (routed's SpMM kernel
+# stages a column window in a block's shared memory)
 WIDE_BLOCKS = (256, 512)
 # binned: 0 = binned by length (up to a warp a row); the nnz-balanced
 # tiles of the `cuda` impl need no lanes-per-row axis

@@ -132,10 +132,13 @@ def test_colsort2_refuses_what_it_cannot_plan():
     with pytest.raises(FormatConversionException):
         build_spmv(empty, {"impl": "colsort2"})
     A = from_scipy(_random(60, 60, 0.1, 2), "csr", dtype=torch.float32, device="cpu")
-    for bad in ({"vrow_planes": 9}, {"vrow_planes": 8, "block_size": 128},
-                {"block_size": 100}):
+    for bad in ({"vrow_planes": 9}, {"block_size": 100}):
         with pytest.raises(NotImplementedException):
             build_spmv(A, {"impl": "colsort2", **bad})
+    # the SpMM kernel's teams take a row each, so 8 planes fit a 128 block
+    X = torch.from_numpy(np.random.RandomState(3).randn(60, 3).astype(np.float32))
+    y = build_spmv(A, {"impl": "colsort2", "vrow_planes": 8, "block_size": 128})(X)
+    np.testing.assert_allclose(y.numpy(), reference_spmv(A, X), **TOL)
     fn = build_spmv(A, {"impl": "colsort2"})
     with pytest.raises(NotImplementedException):
         fn(torch.ones(60, 2, 1))

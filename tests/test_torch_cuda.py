@@ -12,6 +12,7 @@ the reference's own for its DIA, CSR and lane-binned kernels
 
 import functools
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -522,6 +523,89 @@ def test_coo_spmm_kernel_matches_plain_on_card(cuda_device, vpt, block, k):
         torch.testing.assert_close(fn(X), Y, rtol=0, atol=0)
 
 
+def _misaligned(X, offset):
+    """A contiguous copy of X whose address is `offset` values past a
+    512-byte boundary (0: the 16-byte path; 2 f32 values: 8 bytes; 1: 4)."""
+    flat = torch.empty(X.numel() + offset, dtype=X.dtype, device=X.device)
+    Y = flat[offset:].view(X.shape)
+    Y.copy_(X)
+    return Y
+
+
+SPMM_KS = [3, 4, 5, 16, 33, 128, 130]
+PATHS = {"16-byte": 0, "8-byte": 2, "scalar": 1}   # offsets in f32 values
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("k", SPMM_KS)
+def test_dia_spmm_paths_on_card(cuda_device, k, path):
+    """The DIA SpMM on X at three alignments: each path its schedule's
+    width, all equal to the plain version and to one another bit for bit
+    (the same FMAs in the same order), two calls equal."""
+    from cusp_autotuned_tpu_torch.kernels.dia import alignment, spmm_schedule
+    A = gallery.poisson5pt(61, 37, format="dia", device=cuda_device)
+    fn = build_dia(A, {})
+    X0 = _block(A.num_cols, k, cuda_device)
+    X = _misaligned(X0, PATHS[path])
+    assert alignment(X) == {"16-byte": 16, "8-byte": 8, "scalar": 4}[path]
+    assert spmm_schedule(k, alignment(X), 4)[0] * 4 <= alignment(X)
+    before = dia_spmm.launches
+    Y = fn(X)
+    torch.cuda.synchronize()
+    assert dia_spmm.launches == before + 1 and Y.shape == (A.num_rows, k)
+    Yp = dia_spmv_plain(fn.planned_arrays["data"], A.offsets, X, A.shape)
+    torch.testing.assert_close(Y, Yp, **TOL["dia"])
+    assert torch.equal(Y, fn(X0)) and torch.equal(Y, fn(X))
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("k", SPMM_KS)
+def test_coo_spmm_paths_on_card(cuda_device, k, path):
+    """The COO SpMM on X at three alignments, against the plain version;
+    reruns equal bit for bit."""
+    A = from_scipy(_rails_matrix(), "coo", dtype=torch.float32, device=cuda_device)
+    fn = build_colsort(A, {})
+    a = fn.planned_arrays
+    X = _misaligned(_block(A.num_cols, k, cuda_device), PATHS[path])
+    Y = fn(X)
+    Yp = coo_spmv_plain(a["row"], a["col"], a["val"], X, A.num_rows)
+    torch.testing.assert_close(Y, Yp, **TOL["rails"])
+    assert torch.equal(fn(X), Y)
+
+
+@pytest.mark.parametrize("gap", [5, 32, 33, 200])
+@pytest.mark.parametrize("k", [3, 16, 130])
+def test_coo_spmm_writes_every_row_without_a_fill_on_card(cuda_device, gap, k):
+    """Runs of `gap` empty rows at the start, between entries and at the
+    end: up to GAP_ROWS the two kernels write every row of Y, which is
+    allocated over NaN garbage, with no torch.zeros; past it the plan
+    zero-fills Y first.  Reruns equal bit for bit."""
+    from cusp_autotuned_tpu_torch.kernels.colsort import GAP_ROWS
+    rng = np.random.RandomState(gap)
+    lengths = np.r_[[0] * gap, rng.randint(1, 9, 300), [0] * gap, [300],
+                    rng.randint(1, 3, 200), [0] * gap]
+    indptr = np.r_[0, np.cumsum(lengths)]
+    n = 700
+    col = np.concatenate([rng.choice(n, c, replace=False) for c in lengths])
+    S = sp.csr_matrix((rng.uniform(-1, 1, indptr[-1]), col, indptr),
+                      shape=(lengths.size, n))
+    A = from_scipy(S, "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_colsort(A, {})
+    assert fn.plan_stats["zero_fill"] == (gap > GAP_ROWS)
+    X = _block(n, k, cuda_device)
+    torch.full((A.num_rows, k), float("nan"), device=cuda_device)   # freed garbage
+    Y = fn(X)
+    a = fn.planned_arrays
+    torch.testing.assert_close(Y, coo_spmv_plain(a["row"], a["col"], a["val"], X,
+                                                 A.num_rows), **TOL["rails"])
+    assert torch.equal(fn(X), Y)
+    with mock.patch.object(torch, "zeros", wraps=torch.zeros) as zeros:
+        before = coo_spmm.launches
+        fn(X)
+    assert coo_spmm.launches == before + 1
+    assert zeros.call_count == (gap > GAP_ROWS)
+
+
 @pytest.mark.parametrize("impl", ["via_dia", "binned", "colsort"])
 @pytest.mark.parametrize("store", ["bfloat16", "float64"])
 def test_spmm_other_storage_on_card(cuda_device, impl, store):
@@ -651,6 +735,30 @@ def test_colsort2_spmm_kernel_matches_plain_on_card(cuda_device, K, V, hub_cap,
                                           X, A.num_rows, K, st["vrow_len"], st["thr"]),
         _block(A.num_cols, k, cuda_device), (colsort2_spmm, colsort2_hub_spmm))
     assert launched == [1, 1]
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("k", SPMM_KS)
+def test_colsort2_spmm_paths_on_card(cuda_device, k, path):
+    """The colsort2 SpMM pair on X at three alignments and three plans
+    (chip_smoke.py's two planes of 8, the default, eight planes in a block
+    of 128): against the plain version, and equal to the 16-byte path's
+    bits (each row's sum runs in entry order, plane by plane, whatever the
+    width); reruns equal."""
+    A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+    X0 = _block(A.num_cols, k, cuda_device)
+    X = _misaligned(X0, PATHS[path])
+    for cfg in ({"vrow_planes": 2, "vrow_len": 8}, {},
+                {"vrow_planes": 8, "block_size": 128}):
+        fn = build_colsort2(A, cfg)
+        a, st = fn.planned_arrays, fn.plan_stats
+        launched = _rail_case(
+            fn, lambda X: colsort2_spmv_plain(
+                a["indptr"], a["col"], a["val"], a["hub"], X, A.num_rows,
+                st["vrow_planes"], st["vrow_len"], st["thr"]),
+            X, (colsort2_spmm, colsort2_hub_spmm))
+        assert launched == [1, 1]
+        assert torch.equal(fn(X), fn(X0))
 
 
 @pytest.mark.parametrize("window", [4096, 8192, 16384])
@@ -901,7 +1009,7 @@ def test_smoothed_aggregation_plans_on_card(cuda_device):
 def test_dia_band_kernels_match_plain_on_card(cuda_device, dtype, store, k):
     """Every band of a banded via_dia plan against the band's plain version
     (rtol 1e-6: the same products added in the same order) and against the
-    unsharded DIA kernel's rows."""
+    unsharded DIA kernel's rows (the SpMM bit for bit)."""
     from cusp_autotuned_tpu_torch.kernels.dia import (
         _pad_rows, dia_band_spmm, dia_band_spmv, dia_band_spmv_plain)
     from cusp_autotuned_tpu_torch.parallel.sharded_plans import dia_bands
@@ -929,7 +1037,11 @@ def test_dia_band_kernels_match_plain_on_card(cuda_device, dtype, store, k):
                                  x_pad, left, i * band)
         torch.testing.assert_close(y, yp, rtol=1e-6, atol=1e-6)
         rows = whole[i * band:(i + 1) * band]
-        torch.testing.assert_close(y[:rows.shape[0]], rows, rtol=1e-6, atol=1e-6)
+        if k == 1:
+            torch.testing.assert_close(y[:rows.shape[0]], rows, rtol=1e-6,
+                                       atol=1e-6)
+        else:    # the SpMM twin runs the whole kernel's body: the same bits
+            assert torch.equal(y[:rows.shape[0]], rows)
     with pytest.raises(InvalidInputException):
         wrapper(data[:, :band], offsets, x_pad[:-1], left, 3 * band, reach)
 
@@ -1006,8 +1118,9 @@ def test_dia_probe_matches_plain_on_card(cuda_device, mode, block):
 
 
 @pytest.mark.parametrize("k", [3, 16, 128])
-@pytest.mark.parametrize("mode", ["shipped", "team=32", "team=64", "team=128",
-                                  "xtile", "nodata"])
+@pytest.mark.parametrize("mode", ["shipped", "rows=1", "rows=2", "rows=4",
+                                  "team=32", "team=64", "team=128", "xtile",
+                                  "nodata"])
 def test_dia_spmm_probe_matches_plain_on_card(cuda_device, mode, k):
     from cusp_autotuned_tpu_torch.benchmarks import dia_spmm_probe
     A = gallery.poisson5pt(60, 70, format="dia", device=cuda_device)

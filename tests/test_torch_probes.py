@@ -142,8 +142,9 @@ def test_dia_spmm_probe_nodata_is_the_sum_of_shifted_rows(k):
 
 
 def test_dia_spmm_probe_modes():
-    assert dia_spmm_probe.MODES == ("shipped", "team=32", "team=64", "team=128",
-                                    "xtile", "nodata")
+    assert dia_spmm_probe.MODES == ("shipped", "rows=1", "rows=2", "rows=4",
+                                    "team=32", "team=64", "team=128", "xtile",
+                                    "nodata")
     with pytest.raises(InvalidInputException):
         dia_spmm_probe.build_probe(None, "team=256")
 
