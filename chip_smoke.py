@@ -78,7 +78,9 @@ Phases:
 
   build        nvcc builds the kernels from cusp_autotuned_tpu_torch/csrc/
   triad        the stream triad kernel against its plain version, and the
-               card's triad GB/s, the denominator of every bound below
+               card's triad GB/s, the denominator of every bound below;
+               torch.add(b, c, alpha=s, out=a) timed beside it (the same
+               bytes, not the same function)
   dia_spmv     the DIA kernel against its plain PyTorch version on the
                card, at the main path's shape (f32 and bf16 storage) and at
                the JAX package's DIA test shapes
@@ -91,8 +93,12 @@ Phases:
                the row-binned and the nnz-balanced COO kernels against
                their plain versions on four matrices: poisson5pt 1000x1000,
                the skewed 1M-row matrix, a uniform random 1M x 1M matrix
-               (~8 entries a row) and a power-law 1M-row matrix; the COO
-               kernel on poisson also L2-cold beside cuSPARSE (row 6)
+               (~8 entries a row) and a power-law 1M-row matrix, two calls
+               equal bit for bit; the binned kernel on its walk's edges
+               (rows of 32 and 33 entries and of hub_cap and hub_cap + 1,
+               runs of empty rows, LP's rows, rows that read x's end) and
+               L2-cold beside cuSPARSE on poisson and the skewed 1M (row
+               5); the COO kernel on poisson also L2-cold (row 6)
   dia_spmm     the DIA SpMM kernel against its plain version: poisson5pt
                1000x1000 at k = 3, 16 and 128 in f32 and bf16 storage, the
                JAX package's DIA SpMM test shapes, and the edges of its
@@ -102,10 +108,11 @@ Phases:
   binned_spmm, coo_spmm
                the row-binned and COO SpMM kernels against their plain
                versions at k = 16 on the four matrices above, and on the JAX
-               package's SpMM test shapes; the COO kernel also at k = 5, 33
-               and 130 and on X off a 16-byte boundary, two calls equal bit
-               for bit, and L2-cold beside cuSPARSE at k = 3, 16 and 128 on
-               poisson5pt 1000x1000 and the skewed 1M-row matrix (row 6')
+               package's SpMM test shapes, two calls equal bit for bit; the
+               COO kernel also at k = 5, 33 and 130 and on X off a 16-byte
+               boundary; both L2-cold beside cuSPARSE at k = 3, 16 and 128
+               on poisson5pt 1000x1000 and the skewed 1M-row matrix (rows
+               5' and 6')
   colsort2_spmv, routed_spmv
                the colsort2 and routed kernels (with the colsort2 hub pair
                as routed's tail) against their plain versions on the four
@@ -118,11 +125,13 @@ Phases:
                phase's plans and the default ones (rows 7 and 8)
   colsort2_spmm, routed_spmm
                the same at k = 16 on the four matrices, and on the JAX
-               package's SpMM test shapes of the two rails; colsort2's SpMM
-               also two calls equal bit for bit, at k = 5, 33 and 130 and on
-               X off a 16-byte boundary (a skewed 20000-row matrix with hub
-               rows), and L2-cold beside cuSPARSE at k = 3, 16 and 128 on
-               poisson5pt 1000x1000 and the skewed 1M-row matrix (row 7)
+               package's SpMM test shapes of the two rails, two calls equal
+               bit for bit; both also at k = 3, 5, 16, 33, 128 (routed) and
+               130 and on X off a 16-byte boundary (a skewed 20000-row
+               matrix with hub rows), every load path's Y equal, routed's
+               equal to the colsort2 SpMM's with one plane bit for bit; and
+               L2-cold beside cuSPARSE at k = 3, 16 and 128 on poisson5pt
+               1000x1000 and the skewed 1M-row matrix (rows 7 and 8)
   dia_band_spmv, dia_band_spmm
                the DIA band kernels against their plain versions on every
                row band of poisson5pt 1000x1000 f32 over a mesh of four
@@ -149,7 +158,8 @@ Phases:
                operator against one through the plain operator
   amg          the amg path
   autotune     the autotune path
-  spmm         the spmm path
+  spmm         the spmm path, with the untuned default (binned) against
+               each k = 16 walk's leader, timed again side by side
   suite        the suite path
   multidevice  the multidevice path
   bench        the bench path
@@ -234,11 +244,12 @@ WRAPPER_KERNELS = {
     "colsort2_hub_spmm": ("colsort2_spmm_hub_kernel", "colsort2_spmm_hub_fold_kernel"),
 }
 # the phases' plans of the two new rails: two planes of 8 entries (rows
-# above 16 entries in the hub region), and 4096-column windows
+# above 16 entries in the hub region), and routed in blocks of 256
 COLSORT2_CONFIG = {"vrow_planes": 2, "vrow_len": 8, "block_size": 256}
-ROUTED_CONFIG = {"window": 4096, "block_size": 256}
+ROUTED_CONFIG = {"block_size": 256}
 SUITE_SCALE = 2.0
 TAKE_RTOL = 1e-6                     # tests/test_calibrate.py:117
+SPMM_EDGE_KS = (3, 5, 16, 33, 128, 130)  # the binned and routed SpMMs' edges
 JAX_AMG_150_ITERATIONS = 20          # the JAX package's AMG-CG count at 150x150
                                      # (bench.py's amg_cg_iters configuration;
                                      # tests/test_torch_amg.py holds the port
@@ -424,6 +435,13 @@ def triad_phase(device):
     result = compare("stream_triad", lambda: calibrate.stream_triad(x, yk),
                      lambda: calibrate.stream_triad_plain(x, yp), 0.0, 0.0,
                      12 * n, 3 * n, gbps)
+    # no one PyTorch call computes y = 0.5 y + 0.25 x; the STREAM triad
+    # a = b + s c moves the same 12 bytes an element
+    z = torch.empty_like(x)
+    add_ms = median_ms(lambda: torch.add(y0, x, alpha=0.25, out=z))
+    log(f"  yardstick, not the same function: torch.add(b, c, alpha=s, out=a) "
+        f"on the same {n} elements {add_ms:.4f} ms/call")
+    del z
     return gbps, result
 
 
@@ -580,8 +598,9 @@ def rails_phase(device, triad_gbps, matrices):
     log("binned_spmv / coo_spmv: kernels vs plain on the card, atol 1e-4 "
         "plus rtol 1e-4 of each row's sum of |a_ij x_j| (f32 rounding grows "
         "with the terms, not with their sum, and the power-law rows of 4e4 "
-        "entries cancel); default plans (binned by length, hub_cap 1024; "
-        "chunks of 128 entries); useful bytes, the matrix as CSR or COO once "
+        "entries cancel); default plans (binned: a lane a row of at most 32 "
+        "entries, a warp up to hub_cap 1024, a block past it; coo: chunks of "
+        "128 entries); useful bytes, the matrix as CSR or COO once "
         "and x and y once: binned nnz*(4+4) + (m+1)*4 + (n+m)*4, coo "
         "nnz*(4+4+4) + (n+m)*4")
     out = {"binned_spmv": {}, "coo_spmv": {}}
@@ -596,8 +615,8 @@ def rails_phase(device, triad_gbps, matrices):
                                x.abs().double(), m).float()
         fb = build_binned(A, {})
         a = fb.planned_arrays
-        log(f"    bins (row_start, rows, lanes per row; 0 = a block): "
-            f"{fb.plan_stats['bins']}")
+        log(f"    binned: {fb.plan_stats['long_rows']} rows a warp, "
+            f"{fb.plan_stats['hub_rows']} rows a block")
         out["binned_spmv"][name] = compare(
             f"binned {name}", lambda: fb(x),
             lambda: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
@@ -609,12 +628,49 @@ def rails_phase(device, triad_gbps, matrices):
             lambda: coo_spmv_plain(c["row"], c["col"], c["val"], x, m),
             RAIL_RTOL, RAIL_ATOL, nnz * 12 + (n + m) * 4, 2 * nnz, triad_gbps,
             library, RAIL_SAMPLES, scale)
+        if not torch.equal(fb(x), fb(x)):
+            raise RuntimeError(f"binned_spmv {name}: two calls differ")
+        if name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
+            S = sparse_csr(A)
+            cold_line(f"row 5: binned {name}", fb, x,
+                      nnz * 8 + (m + 1) * 4 + (n + m) * 4, S)
         if name == "poisson5pt 1000x1000 f32":
             if not torch.equal(fc(x), fc(x)):
                 raise RuntimeError("coo_spmv: two calls differ")
-            cold_line(f"row 6: coo {name}", fc, x, nnz * 12 + (n + m) * 4,
-                      sparse_csr(A))
+            cold_line(f"row 6: coo {name}", fc, x, nnz * 12 + (n + m) * 4, S)
         del fb, fc, a, c, scale
+    # the walk's edges (csrc/binned_spmv.cu on rail_rows.cuh): rows of 32
+    # and 33 entries (a lane or a warp) and of hub_cap and hub_cap + 1 (a
+    # warp or a block), runs of empty rows, LP's rows of ~1,300 entries (a
+    # warp or a block each), rows that read x's end
+    edges = edge_csr([16, 17, 32, 33, 64, 65, 5, 0] * 700, 20000, 21, device)
+    gaps = edge_csr([0] * 40 + ([3, 0, 33] + [0] * 100 + [7] * 40 + [0] * 1000)
+                    * 30 + [0] * 70, 5000, 22, device)
+    lp = lp_csr(device)
+    tail = edge_csr([16] * 4096, 4998, 23, device, tail_cols=300)
+    log("binned_spmv: the walk's edges against the plain version, two calls "
+        "equal bit for bit")
+    for name, A, cfg in (("edges 16/17/32/33/64/65", edges, {"hub_cap": 64}),
+                         ("edges 16/17/32/33/64/65", edges,
+                          {"hub_cap": 16, "block_size": 512}),
+                         ("runs of 40 to 1000 empty rows", gaps, {"hub_cap": 32}),
+                         ("Williams LP (suite 2.0)", lp, {}),
+                         ("Williams LP (suite 2.0)", lp, {"hub_cap": 1300}),
+                         ("rows that read x's end (n 4998)", tail, {})):
+        fb = build_binned(A, cfg)
+        a, st = fb.planned_arrays, fb.plan_stats
+        x = seeded_x(A.num_cols, 5, device)
+        y = fb(x)
+        _, scale = plain_product(A, x)
+        err = check_mode(f"binned_spmv {name} {cfg}", y, binned_spmv_plain(
+            a["indptr"], a["col"], a["val"], a["perm"], a["bins"], x, A.num_rows),
+            RAIL_RTOL, RAIL_ATOL, scale)
+        if not torch.equal(fb(x), y):
+            raise RuntimeError(f"binned_spmv {name} {cfg}: two calls differ")
+        log(f"  binned_spmv {name} {cfg} ({st['long_rows']} rows a warp, "
+            f"{st['hub_rows']} a block): max abs err {err:.3e}; two calls equal "
+            f"bit for bit")
+        del fb, a, x, y, scale
     return {k: v["poisson5pt 1000x1000 f32"] for k, v in out.items()}
 
 
@@ -775,6 +831,8 @@ def rails_spmm_phase(device, triad_gbps, matrices):
             triad_gbps, library, SPMM_SAMPLES, scale, SPMM_PER_SAMPLE)
         if not torch.equal(fc(X), fc(X)):
             raise RuntimeError(f"coo_spmm {name}: two calls differ")
+        if not torch.equal(fb(X), fb(X)):
+            raise RuntimeError(f"binned_spmm {name}: two calls differ")
         del fb, fc, a, c, scale, X, library
     mid = gallery.poisson5pt(300, 300, format="csr", device=device)
     fm = build_colsort(mid, {})
@@ -787,6 +845,8 @@ def rails_spmm_phase(device, triad_gbps, matrices):
                                         X.abs().double(), mid.num_rows).float(),
                mid.num_cols, (3, 5, 16, 33, 130), device,
                across=False)     # a team's segment of a chunk is vpt T entries
+    log("rows 5' and 6', L2-cold: useful bytes binned nnz*(4+4) + (m+1)*4 + "
+        "(n+m)*k*4, coo nnz*(4+4+4) + (n+m)*k*4")
     for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
         A = matrices[name]
         S = sparse_csr(A)
@@ -794,6 +854,9 @@ def rails_spmm_phase(device, triad_gbps, matrices):
             X = seeded_block(A.num_cols, k, 5, device)
             cold_line(f"row 6': coo_spmm {name} k={k}", build_colsort(A, {}), X,
                       A.nnz * 12 + (A.num_rows + A.num_cols) * k * 4, S)
+            cold_line(f"row 5': binned_spmm {name} k={k}", build_binned(A, {}), X,
+                      A.nnz * 8 + (A.num_rows + 1) * 4
+                      + (A.num_rows + A.num_cols) * k * 4)
             del X
         del S
     return {k: v["poisson5pt 1000x1000 f32 k=16"] for k, v in out.items()}
@@ -924,8 +987,7 @@ def new_rails_phase(device, triad_gbps, matrices):
          {"vrow_len": 32, "hub_cap": 64}, {"hub_cap": 64}, 0),
         ("runs of 40 to 1000 empty rows", gaps, {"vrow_len": 32, "hub_cap": 64},
          {}, 0),
-        ("Williams LP (suite 2.0), default plans", lp, {"vrow_len": 0}, {"window": 0},
-         0),
+        ("Williams LP (suite 2.0), default plans", lp, {"vrow_len": 0}, {}, 0),
         ("rows that read x's end (n 4998)", edge_csr([16] * 4096, 4998, 23, device,
                                                      tail_cols=300), {}, {}, 0),
     ]
@@ -981,14 +1043,13 @@ def new_rails_phase(device, triad_gbps, matrices):
         r, st = fr.planned_arrays, fr.plan_stats
         out[f"routed_{kind}"][name] = compare(
             f"routed {name} (hub_cap {st['hub_cap']}, tail {st['tail']}, "
-            f"{st['long_rows']} long rows, {st['staged_spmm_windows']} staged "
-            f"SpMM windows)", lambda: fr(X),
+            f"{st['long_rows']} long rows)", lambda: fr(X),
             lambda: routed_spmv_plain(r["indptr"], r["col"], r["val"], r["hub"], X, m,
                                       st["hub_cap"]),
             RAIL_RTOL, RAIL_ATOL, useful, flops, triad_gbps, library, samples, scale,
             per_sample)
-        if k == 0 and not torch.equal(fr(X), fr(X)):
-            raise RuntimeError(f"routed_spmv {name}: two calls differ")
+        if not torch.equal(fr(X), fr(X)):
+            raise RuntimeError(f"routed_{kind} {name}: two calls differ")
         del fr, r, scale, library, X
 
     # tests/test_pallas.py:942: both rails' packages refuse routed here
@@ -1037,15 +1098,47 @@ def new_rails_phase(device, triad_gbps, matrices):
                    fe, plain, lambda X: plain(X, abs_=True).float(), E.num_cols,
                    (3, 5, 16, 33, 130), device)
         del fe, a
-    log("row 7's SpMM, L2-cold: useful bytes nnz*(4+4) + (m+1)*4 + (n+m)*k*4")
+    log("routed_spmm: the schedule's edges on the same matrix, the default "
+        "hub_cap and 32; its Y equal bit for bit to the colsort2 SpMM's with "
+        "one plane of hub_cap entries (vrow_planes 1, vrow_len hub_cap) on "
+        "routed's plan, whose rows hold their columns in ascending order")
+    from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
+    for cfg in ({}, {"hub_cap": 32}):
+        fe = build_routed(E, {**ROUTED_CONFIG, **cfg})
+        r, st = fe.planned_arrays, fe.plan_stats
+        cap = st["hub_cap"]
+        one_plane = build_colsort2(
+            csr_matrix(r["indptr"], r["col"], r["val"], E.shape, device=device),
+            {"vrow_planes": 1, "vrow_len": cap, "hub_cap": cap})
+
+        def plain(X, r=r, cap=cap, abs_=False):
+            return routed_spmv_plain(
+                r["indptr"], r["col"], r["val"].abs().double() if abs_ else r["val"],
+                r["hub"], X.abs().double() if abs_ else X, E.num_rows, cap)
+        spmm_edges(f"routed_spmm hub_cap {cap} (tail {st['tail']} entries)", fe,
+                   plain, lambda X: plain(X, abs_=True).float(), E.num_cols,
+                   SPMM_EDGE_KS, device)
+        for k in SPMM_EDGE_KS:
+            X = seeded_block(E.num_cols, k, 6, device)
+            if not torch.equal(fe(X), one_plane(X)):
+                raise RuntimeError(f"routed_spmm hub_cap {cap} k={k}: Y differs "
+                                   f"from the colsort2 SpMM's with one plane")
+        log(f"  routed_spmm hub_cap {cap}: Y equal to colsort2's one plane bit "
+            f"for bit at k = {SPMM_EDGE_KS}")
+        del fe, r, one_plane
+    log("rows 7 and 8's SpMM, L2-cold: useful bytes nnz*(4+4) + (m+1)*4 + "
+        "(n+m)*k*4")
     for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
         A = matrices[name]
         for k in (3, 16, 128):
             X = seeded_block(A.num_cols, k, 5, device)
             S = sparse_csr(A)
-            for cfg in (COLSORT2_CONFIG, {}):
-                cold_line(f"row 7: colsort2_spmm {cfg or 'default'} {name} k={k}",
-                          build_colsort2(A, cfg), X, A.nnz * 8 + (A.num_rows + 1) * 4
+            for label, build, cfg in (("colsort2", build_colsort2, COLSORT2_CONFIG),
+                                      ("colsort2", build_colsort2, {}),
+                                      ("routed", build_routed, {})):
+                row = 7 if label == "colsort2" else 8
+                cold_line(f"row {row}: {label}_spmm {cfg or 'default'} {name} k={k}",
+                          build(A, cfg), X, A.nnz * 8 + (A.num_rows + 1) * 4
                           + (A.num_rows + A.num_cols) * k * 4, S)
                 S = None              # cuSPARSE once a (matrix, k)
             del X
@@ -1354,7 +1447,9 @@ def spmm_phase(device, matrices):
     torch.cuda.synchronize()
     t_path = time.perf_counter()
     reset_counts()
-    walk("poisson5pt 1000x1000 f32", A, X, need=("binned", "colsort", "via_dia/cuda"))
+    results = walk("poisson5pt 1000x1000 f32", A, X,
+                   need=("binned", "colsort", "via_dia/cuda"))
+    default_line("poisson5pt 1000x1000 f32", A, X, results)
     op = autotune.tuned_operator(A, X)
     err = check_block("tuned_operator(A, X)", op(X), Y_plain, scale)
     best = autotune.get_tuner().best_configuration
@@ -1368,7 +1463,9 @@ def spmm_phase(device, matrices):
     err = check_block("the multiply hook on an Array2d", Y, Y_plain, scale)
     log(f"spmm: the multiply hook on Array2d {tuple(X.shape)}: max abs err "
         f"{err:.3e}")
-    walk("random 1M rows, skewed", S, XS, need=("binned", "colsort"))
+    results = walk("random 1M rows, skewed", S, XS, need=("binned", "colsort"))
+    default_line("random 1M rows, skewed", S, XS, results)
+    del results
     ops = autotune.tuned_operator(S, XS)
     err = check_block("tuned_operator(skewed, X)", ops(XS), YS_plain, scale_s)
     log(f"spmm: tuned_operator(skewed 1M, X) runs {best(S, XS)}: max abs err "
@@ -1585,15 +1682,13 @@ def take_probe_phase(device, triad_gbps):
     return records[True]
 
 
-def model_line(name, A, x, results):
-    """The cost model's pick for A against the leader of the walk `results`,
-    both timed again side by side (pick, leader, leader, pick) as the tuner
-    times a configuration; recorded in MODEL_LINES."""
+def against_leader(A, x, results, pick):
+    """(pick ms, the walk's leader, leader ms): the configuration `pick`
+    and the leader of the walk `results` timed again side by side (pick,
+    leader, leader, pick) as the tuner times a configuration."""
     from cusp_autotuned_tpu_torch.autotune import Tuner
-    from cusp_autotuned_tpu_torch.autotune.cost_model import predict, recommend_config
     from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
 
-    pick, us = recommend_config(A, x)
     lead = min((r for r in results if r.is_valid()), key=lambda r: r.duration_ms)
     fns = {"pick": build_spmv(A, pick), "leader": build_spmv(A, lead.configuration)}
     t = Tuner()
@@ -1601,12 +1696,36 @@ def model_line(name, A, x, results):
     for k in ("pick", "leader", "leader", "pick"):
         times[k].append(t._time_graph(fns[k], x))
     pick_ms, lead_ms = (statistics.median(times[k]) for k in ("pick", "leader"))
+    return pick_ms, lead, lead_ms
+
+
+def model_line(name, A, x, results):
+    """The cost model's pick for A against the leader of the walk `results`,
+    both timed again side by side; recorded in MODEL_LINES."""
+    from cusp_autotuned_tpu_torch.autotune.cost_model import predict, recommend_config
+
+    pick, us = recommend_config(A, x)
+    pick_ms, lead, lead_ms = against_leader(A, x, results, pick)
     priced = {k: round(v["us"], 2) for k, v in predict(A, x).items() if "us" in v}
     MODEL_LINES.append((name, pick, pick_ms, lead.configuration, lead_ms))
     log(f"model: {name}: pick {pick} (predicted {us:.2f} us) {pick_ms:.4f} ms; "
         f"walk leader {label(lead.configuration)} {lead.duration_ms:.4f} ms in the "
         f"walk, {lead_ms:.4f} ms now; pick / leader {pick_ms / lead_ms:.3f}; "
         f"predicted us {priced}")
+
+
+def default_line(name, A, x, results):
+    """The untuned configuration (default_config: binned for a block x on a
+    matrix that is not DIA) against the leader of the walk `results`, both
+    timed again side by side."""
+    from cusp_autotuned_tpu_torch.kernels.variants import default_config
+
+    pick = default_config(A, x)
+    pick_ms, lead, lead_ms = against_leader(A, x, results, pick)
+    log(f"default: {name}, x {tuple(x.shape)}: untuned {pick} {pick_ms:.4f} ms; "
+        f"walk leader {label(lead.configuration)} {lead.duration_ms:.4f} ms in the "
+        f"walk, {lead_ms:.4f} ms now ({lead.configuration}); default / leader "
+        f"{pick_ms / lead_ms:.3f}")
 
 
 def launch_calls(fn, calls):
@@ -2087,6 +2206,15 @@ def probes_phase(device, triad_gbps):
         "launch_floor (8, 128) f32", lambda: harness.launch_floor(x),
         lambda: harness.launch_floor_plain(x), 0.0, 0.0, 8 * x.numel(),
         2 * x.numel(), triad_gbps)
+    # the JAX harness's floor kernel is a copy: Tensor.copy_ of the same
+    # tile is one launch of the same bytes (the port's floor also scales)
+    z = torch.empty_like(x)
+    copy_ms = median_ms(lambda: z.copy_(x))
+    copy_graph_ms = harness.graph_time_s(lambda: z.copy_(x), repeats=100,
+                                         device=x.device) * 1e3
+    log(f"  yardstick: Tensor.copy_ of the same tile {copy_ms:.4f} ms/call, "
+        f"{copy_graph_ms:.5f} ms a launch in a graph's replay")
+    del z
 
     A = gallery.poisson5pt(1000, 1000, format="dia", device=device)
     x = seeded_x(A.num_cols, 0, device)

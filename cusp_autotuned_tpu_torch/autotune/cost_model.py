@@ -17,13 +17,13 @@ this model prices each launch plan of the port's impls on one card
     group) pair of the pattern, at gather_scale x the index_select probe's
     price an element; and the lane-iterations it issues, idle lanes
     included (a lane an entry for the csr `cuda` kernel's tiles,
-    length-binned teams for binned, rail_rows.cuh's walk for colsort2 and
-    routed: a warp a chunk of 32 short-row entries of its 32 rows and a
-    warp a chunk of a long row; a lane an entry for colsort), at lane_ns
-    each;
+    rail_rows.cuh's walk for binned, colsort2 and routed: a warp a chunk of
+    32 short-row entries of its 32 rows and a warp a chunk of a long row,
+    and binned's block a pass over a hub row; a lane an entry for
+    colsort), at lane_ns each;
   - the latency of its longest thread's chain of dependent round trips
-    (colsort2's and routed's warps walk a group's chunks or a long row's
-    rounds of four; the DIA kernel walks every diagonal for each row; the
+    (the binned, colsort2 and routed warps walk a group's chunks or a long
+    row's rounds of four; the DIA kernel walks every diagonal for each row; the
     carry folds of the csr `cuda` kernel and of colsort walk the tiles or
     chunks of the longest row), at serial_us (serial_dia_us for the DIA
     kernel) each.
@@ -44,7 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from cusp_autotuned_tpu_torch.kernels.binned import ENTRIES_PER_LANE, HUB_CAP
+from cusp_autotuned_tpu_torch.kernels.binned import HUB_CAP
 from cusp_autotuned_tpu_torch.kernels.colsort2 import HUB_SPLIT, SHORT_ROW, auto_hub_cap
 from cusp_autotuned_tpu_torch.kernels.colsort import GAP_ROWS
 from cusp_autotuned_tpu_torch.kernels.csr import ENTRIES_PER_THREAD, tile_rows, tile_splits
@@ -149,30 +149,19 @@ def _steps(d: np.ndarray, lanes) -> np.ndarray:
     return np.maximum(1, -(-d // lanes))
 
 
-def _block_slots(steps: np.ndarray, rows_per_block: int, block: int) -> int:
-    """Lane-iterations of a kernel whose blocks of `block` threads take
-    `rows_per_block` consecutive rows each: every block holds its SM's slots
-    until its longest row is done."""
-    if steps.size == 0:
-        return 0
-    r = max(1, int(rows_per_block))
-    padded = np.zeros(-(-steps.size // r) * r, np.int64)
-    padded[:steps.size] = steps
-    return int(block * padded.reshape(-1, r).max(axis=1).sum())
-
-
-# The launch shapes the model prices.  Each rail's block size and routed's
-# window are the values that led the most walks on an NVIDIA H100 80GB HBM3
-# at 700 W (chip_smoke.py's walks), colsort's values_per_thread and block
+# The launch shapes the model prices.  Each rail's block size is the value
+# that led the most walks on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py's walks), colsort's values_per_thread and block
 # the fastest of benchmarks/spmv_tiles.py's sweep of the two-launch COO
 # kernel (16 entries a lane, the old walks' leader, is now the slowest); the
-# axes that change a plan's shape by the pattern (binned's threads_per_row,
-# colsort2's planes and virtual-row length) are priced at each value.
+# axes that change a plan's shape by the pattern (colsort2's planes and
+# virtual-row length) are priced at each value.  binned's threads_per_row
+# shapes only its SpMM's plan, which the model does not price.
 CUDA_BLOCK = 256
-BINNED_BLOCK, BINNED_TPR = 512, (0, 1, 4)
+BINNED_BLOCK = 512
 COLSORT_BLOCK, COLSORT_VPT = 256, 4
 COLSORT2_BLOCK = 256
-ROUTED_BLOCK, ROUTED_WINDOW = 256, 4096
+ROUTED_BLOCK = 256
 
 
 def _csr_blocks(d: np.ndarray, nnz: int, tile: int) -> int:
@@ -219,22 +208,14 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     blocks = _csr_blocks(d, nnz, tile)
     out["cuda"] = [(blocks * tile, 1 + (tiles > 1), 4 + -(-dmax // tile),
                     {"impl": "cuda", "block_size": CUDA_BLOCK})]
+    # binned: rail_rows.cuh's walk of the rows up to HUB_CAP, and a block
+    # a hub row, four rounds of loads in flight
     hub = d > HUB_CAP
-    out["binned"] = []
-    for tpr in BINNED_TPR:
-        if tpr:
-            g = np.full(d.shape, tpr, np.int64)
-        else:
-            need = np.maximum(-(-d // ENTRIES_PER_LANE), 1)
-            g = np.minimum(1 << np.ceil(np.log2(need)).astype(np.int64), 32)
-        slots = sum(_block_slots(_steps(d[(g == lanes) & ~hub], lanes),
-                                 BINNED_BLOCK // lanes, BINNED_BLOCK)
-                    for lanes in np.unique(g[~hub]))
-        slots += int(BINNED_BLOCK * _steps(d[hub], BINNED_BLOCK).sum())
-        steps = np.where(hub, _steps(d, BINNED_BLOCK), _steps(d, g))
-        out["binned"].append((slots, 1, 2 * int(steps.max(initial=1)),
-                              {"impl": "binned", "threads_per_row": tpr,
-                               "block_size": BINNED_BLOCK}))
+    slots, chain = _rail_rows(d, HUB_CAP)
+    slots += int(BINNED_BLOCK * _steps(d[hub], BINNED_BLOCK).sum())
+    hub_chain = 2 * -(-int(d[hub].max(initial=0)) // (BINNED_BLOCK * AHEAD))
+    out["binned"] = [(slots, 1, max(chain, hub_chain),
+                      {"impl": "binned", "block_size": BINNED_BLOCK})]
     # a lane's run loads four entries a round trip; the carry fold adds a
     # row's partials chunk by chunk: a chain as long as the chunks the
     # longest row spans; a run of more than GAP_ROWS empty rows adds y's
@@ -264,8 +245,7 @@ def _rails(deg: np.ndarray, nnz: int, m: int) -> Dict[str, Any]:
     slots, chain = _rail_rows(d, cap)
     out["routed"] = [(slots + int(hub_slots[tail].sum()), 1 + 2 * bool(tail.any()),
                       max(chain, hub_iters if tail.any() else 0),
-                      {"impl": "routed", "window": ROUTED_WINDOW,
-                       "block_size": ROUTED_BLOCK})]
+                      {"impl": "routed", "block_size": ROUTED_BLOCK})]
     out["routed_tail"] = float(d[tail].sum()) / max(nnz, 1)
     return out
 
@@ -291,8 +271,6 @@ def features(A) -> Dict[str, Any]:
 
 def _rail_bytes(impl, m, n, nnz, v) -> float:
     base = nnz * (v + 4) + 4 * (m + 1) + (m + n) * v
-    if impl == "binned":
-        return base + 4 * m                        # the row permutation
     if impl == "colsort":
         return nnz * (v + 8) + (m + n) * v         # row ids
     return base

@@ -18,9 +18,8 @@ build_routed):
              indices streamed, x not read (the JAX loads, :65-66), hub
              rows 0: the traffic floor
 
-each on two plans: the default (16,384-column windows, 256 rows a block)
-and 4096-column windows over 512 rows a block.  The JAX stages were the
-TPU's in-lane takes; the port's routed kernel has none, and reads every x
+each on two plans: the default (256 rows a block) and 512 rows a block.
+The JAX stages were the TPU's in-lane takes; the port's routed kernel has none, and reads every x
 through L1/L2.  The shipped build_routed is timed in f32 and in bf16 value
 storage; the JAX pack8 knob (int8 index planes) is a TPU workaround and
 has no counterpart.  Where the JAX probe printed its take passes and XLU
@@ -43,9 +42,8 @@ from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 
 MODES = ("full", "nohub", "loads")     # in the order of rail_rows.cuh's Mode
 SUITE_SCALE = 2.0
-# the default plan (16,384-column windows, 256 rows a block), and
-# 4096-column windows over 512 rows a block
-CONFIGS = ({"block_size": 256}, {"window": 4096, "block_size": 512})
+# the default plan (256 rows a block), and 512 rows a block
+CONFIGS = ({"block_size": 256}, {"block_size": 512})
 
 
 def routed_probe_plain(arrays, x, shape, thr, mode):
@@ -110,7 +108,7 @@ def build_probe(A, config, mode):
         return routed_probe(arrays, x, A.shape, thr, mode, block)
 
     info = {"rows": A.shape[0], "cols": A.shape[1], "nnz": st["nnz"],
-            "window": st["window"], "hub_cap": thr, "long_rows": st["long_rows"],
+            "hub_cap": thr, "long_rows": st["long_rows"],
             "tail_share": st["tail"] / max(st["nnz"], 1)}
     fn.planned_arrays = arrays
     return fn, info
@@ -170,7 +168,7 @@ def main(argv=None, stream_gbps=None):
             if mode == MODES[0]:
                 print(f"routed_probe: {name} (williams_suite({SUITE_SCALE})) "
                       f"{info['rows']} x {info['cols']}, {info['nnz']} entries; "
-                      f"{tag}: window {info['window']}, hub_cap {info['hub_cap']}, "
+                      f"{tag}: hub_cap {info['hub_cap']}, "
                       f"{info['long_rows']} long rows, tail "
                       f"{100 * info['tail_share']:.1f} %; useful {useful / 1e6:.1f} "
                       f"MB, bound {useful / stream_gbps / 1e6:.4f} ms at the "

@@ -1,9 +1,12 @@
-"""Time the CSR kernel (the `cuda` impl), the COO kernel (`colsort`) and
-the colsort2 and routed kernels against cuSPARSE on the card, with every
-working set out of L2; with `--spmm`, the SpMM kernels.
+"""Time the CSR kernel (the `cuda` impl), the COO kernel (`colsort`), the
+colsort2 and routed kernels and the DIA and binned SpMVs against cuSPARSE
+on the card, with every working set out of L2; with `--spmm`, the SpMM
+kernels.
 
-    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles [--sweep] [--rails]
-    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles --spmm [--k 3,16,128]
+    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles [--sweep] [--rails] \
+        [--plans LABEL,...]
+    python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles --spmm [--k 3,16,128] \
+        [--plans LABEL,...]
     python -m cusp_autotuned_tpu_torch.benchmarks.spmv_tiles --turns N \
         [--against TREE] "MATRIX[ k=K]|PLAN[|PLAN]" ...
 
@@ -14,18 +17,21 @@ Economics and LP of williams_suite(2.0) (LP: 2,000 rows of ~1,300
 entries); and a 1M-row matrix whose entries all lie in its last 4,096
 rows, 8 a row, so that 999,904 empty rows lead.  The colsort2 and routed
 plans (rows 7 and 8) are timed on poisson, the skewed 1M, Economics and
-LP: chip_smoke.py's plans (two planes of 8 entries; 4096-column windows)
-and the defaults; `--rails` times those rows alone.  For each plan it
-prints the device ms (a CUDA graph's replay) and the ms a call back to
-back, both from
-`harness.time_cold`, the CUDA kernels one call launches (torch.profiler,
+LP: chip_smoke.py's colsort2 plan (two planes of 8 entries) and the
+defaults; `--rails` times those rows alone.  For each plan it prints the
+device ms (a CUDA graph's replay) and the ms a call back to back, both
+from `harness.time_cold`, the CUDA kernels one call launches (torch.profiler,
 fills included), the bound (the useful bytes over 3.35 TB/s) and
 cuSPARSE's two times on the same input (`torch.sparse_csr_tensor(...) @
 x`, a yardstick the port never calls).
 
 The default runs the shipped plans (block 256; values_per_thread 4 for
-COO).  `--sweep` times the CSR kernel at blocks of 128, 256 and 512, and
-the COO kernel at values_per_thread 4, 8 and 16 and blocks of 256 and 512.
+COO), and the DIA SpMV (rows 1 and 2, on poisson5pt 1000x1000 and
+2000x2000 as DIA) and the binned SpMV (row 5, on poisson5pt 1000x1000 and
+the skewed 1M) with their default plans.  `--plans` keeps the plans of the
+listed labels alone (in either mode).  `--sweep` times the CSR kernel at
+blocks of 128, 256 and 512, and the COO kernel at values_per_thread 4, 8
+and 16 and blocks of 256 and 512.
 The script uses only the rails' plan builders and the harness, so run as a
 file it times an older tree of the package as well (put that tree first on
 PYTHONPATH).  The last line is a JSON record of every row.  Needs one CUDA
@@ -36,9 +42,9 @@ here.
 `--k` (default 3, 16 and 128): the DIA SpMM (`PERF.md` row 3) on
 poisson5pt 1000x1000 as DIA, its band twin (row 11) on band 0 of four of
 the same matrix (the banded via_dia plan's block apply), and the COO SpMM
-(row 6') and the colsort2 SpMM (row 7, the SpMV rows' two plans) on
-poisson5pt 1000x1000 and the skewed 1M; at k = 16 also the binned SpMM
-(row 5') and the routed SpMM (row 8, the SpMV rows' plans).  Each beside cuSPARSE on the same X and its
+(row 6'), the colsort2 SpMM (row 7, the SpMV rows' two plans), the binned
+SpMM (row 5') and the routed SpMM (row 8, the SpMV rows' plans) on
+poisson5pt 1000x1000 and the skewed 1M.  Each beside cuSPARSE on the same X and its
 bound: the matrix once (DIA: its padded diagonals), X read and Y written
 once.
 
@@ -97,20 +103,18 @@ ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
                "1M rows, the last 4096 full"),
       "colsort": ("poisson5pt 1000x1000", "skewed 1M", f"skewed 1M band 0 of {BANDS}",
                   "1M rows, the last 4096 full"),
-      "colsort2": RAIL_MATRICES, "routed": RAIL_MATRICES}
+      "colsort2": RAIL_MATRICES, "routed": RAIL_MATRICES,
+      "dia": ("poisson5pt 1000x1000", "poisson5pt 2000x2000"),
+      "binned": ("poisson5pt 1000x1000", "skewed 1M")}
 # plans that only --turns times
-TURN_PLANS = {"routed window=4096 block=512": ("routed", {"window": 4096,
-                                                          "block_size": 512}),
+TURN_PLANS = {"routed block=512": ("routed", {"block_size": 512}),
               "dia default": ("dia", {}), "binned default": ("binned", {})}
-# the SpMM plans --spmm times at every k beside the DIA and COO SpMMs, and
-# those it times at k = 16 alone
+# the SpMM plans --spmm times at every k beside the DIA and COO SpMMs
 SPMM_PLANS = (("colsort2 K=2 V=8", "colsort2", {"vrow_planes": 2, "vrow_len": 8,
                                                 "block_size": 256}),
-              ("colsort2 default", "colsort2", {}))
-SPMM_PLANS_16 = (("binned default", "binned", {}),
-                 ("routed window=4096", "routed", {"window": 4096,
-                                                   "block_size": 256}),
-                 ("routed default", "routed", {}))
+              ("colsort2 default", "colsort2", {}),
+              ("binned default", "binned", {}),
+              ("routed default", "routed", {}))
 
 
 def skewed(n, seed, device, rows=None):
@@ -143,19 +147,23 @@ def leading_gap(n, rows, per_row, seed, device):
 
 
 def matrices(device, only=None):
-    """(name, f32 CSR) of the timed matrices; with `only`, that one alone."""
+    """(name, f32 CSR) of the timed matrices; with `only` (a name or a
+    collection of names), those alone."""
     from cusp_autotuned_tpu_torch import gallery
     from cusp_autotuned_tpu_torch.backend.reference import from_scipy
     n = 1_000_000
     make = {
         "poisson5pt 1000x1000": lambda: gallery.poisson5pt(1000, 1000, format="csr",
                                                            device=device),
+        "poisson5pt 2000x2000": lambda: gallery.poisson5pt(2000, 2000, format="csr",
+                                                           device=device),
         "skewed 1M": lambda: skewed(n, 2, device),
         f"skewed 1M band 0 of {BANDS}": lambda: skewed(n, 2, device, -(-n // BANDS)),
         "Economics": None, "LP": None,
         "1M rows, the last 4096 full": lambda: leading_gap(n, 4096, 8, 3, device)}
+    wanted = (only,) if isinstance(only, str) else only
     for name, build in make.items():
-        if only not in (None, name):
+        if wanted is not None and name not in wanted:
             continue
         if build is None:
             S = gallery.williams_suite(2.0, names=(name,))[name]
@@ -257,8 +265,10 @@ def turns(pairs, rounds, against=None):
         nbytes = useful_bytes(ib, A, k)
         fns = [(other[ia] if len(pl) == 1 else BUILDERS[ia])(A, ca), BUILDERS[ib](A, cb)]
         tags = [f"{against} {pl[0]}" if len(pl) == 1 else pl[0], pl[-1]]
-        ref = fns[0](x)
-        same = bool(torch.equal(ref, fns[1](x)))
+        ref, got = fns[0](x), fns[1](x)
+        same = bool(torch.equal(ref, got))
+        differ = ref != got
+        differ = int((differ if k == 0 else differ.any(1)).sum())
         calls = []
         for fn in fns:
             def build(i, fn=fn):
@@ -275,13 +285,15 @@ def turns(pairs, rounds, against=None):
                                                   device=device) * 1e3)
         wins = sum(b < a for a, b in zip(*ms))
         print(f"turns {name}: A = {tags[0]}, B = {tags[1]}; y equal bit for bit: "
-              f"{same}\n  A " + " ".join(f"{t:.4f}" for t in ms[0])
+              f"{same} ({differ} rows differ)\n  A "
+              + " ".join(f"{t:.4f}" for t in ms[0])
               + "\n  B " + " ".join(f"{t:.4f}" for t in ms[1])
               + f"\n  median A {np.median(ms[0]):.4f} ms, B {np.median(ms[1]):.4f} ms "
               f"device; B faster in {wins} of {rounds} rounds", flush=True)
         rows.append({"matrix": name, "a": tags[0], "b": tags[1], "a_ms": ms[0],
-                     "b_ms": ms[1], "b_wins": wins, "bitwise_equal": same})
-        del A, x, fns, calls, ref
+                     "b_ms": ms[1], "b_wins": wins, "bitwise_equal": same,
+                     "rows_differ": differ})
+        del A, x, fns, calls, ref, got
         torch.cuda.empty_cache()
     return rows
 
@@ -321,6 +333,8 @@ def library_cold(S, x, nbytes, samples=SAMPLES):
 def plans(sweep, rails_only=False):
     """(label, impl, config) of each timed plan."""
     if not rails_only:
+        yield "dia default", "dia", {}
+        yield "binned default", "binned", {}
         for block in ((128, 256, 512) if sweep else (256,)):
             yield f"csr block={block}", "cuda", {"block_size": block}
         for vpt in ((4, 8, 16) if sweep else (4,)):
@@ -330,7 +344,6 @@ def plans(sweep, rails_only=False):
     yield "colsort2 K=2 V=8", "colsort2", {"vrow_planes": 2, "vrow_len": 8,
                                            "block_size": 256}
     yield "colsort2 default", "colsort2", {}
-    yield "routed window=4096", "routed", {"window": 4096, "block_size": 256}
     yield "routed default", "routed", {}
 
 
@@ -380,14 +393,16 @@ def band_plan(D, device, bands=BANDS):
     return fn, op.arrays[0]["data"].shape[1], op.x_prep
 
 
-def spmm(ks=SPMM_K):
-    """The --spmm rows (see the module's docstring) for each k of ks."""
+def spmm(ks=SPMM_K, wanted=None):
+    """The --spmm rows (see the module's docstring) for each k of ks, of the
+    plans labelled in `wanted` (all where None)."""
+    def keep(label):
+        return wanted is None or label in wanted
+
     from cusp_autotuned_tpu_torch.ops.convert import convert
     device = torch.device("cuda")
     rows = []
-    for name, A in matrices(device):
-        if name not in ("poisson5pt 1000x1000", "skewed 1M"):
-            continue
+    for name, A in matrices(device, ("poisson5pt 1000x1000", "skewed 1M")):
         S = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
                                     size=A.shape)
         D = convert(A, "dia") if name.startswith("poisson") else None
@@ -398,15 +413,17 @@ def spmm(ks=SPMM_K):
                   flush=True)
             ref = library_row(f"  {name} k={k}", S, X, useful_bytes("cuda", A, k),
                               rows, **keys)
-            if D is not None:
+            if D is not None and keep("dia (row 3)"):
                 timed_row("dia (row 3)", build_dia(D, {}), X,
                           useful_bytes("dia", D, k), ref, rows, **keys)
-            timed_row("coo (row 6')", build_colsort(A, {}), X,
-                      useful_bytes("colsort", A, k), ref, rows, **keys)
-            for label, impl, cfg in SPMM_PLANS + (SPMM_PLANS_16 if k == 16 else ()):
-                timed_row(label, BUILDERS[impl](A, cfg), X,
-                          useful_bytes(impl, A, k), ref, rows, **keys)
-            if D is not None:
+            if keep("coo (row 6')"):
+                timed_row("coo (row 6')", build_colsort(A, {}), X,
+                          useful_bytes("colsort", A, k), ref, rows, **keys)
+            for label, impl, cfg in SPMM_PLANS:
+                if keep(label):
+                    timed_row(label, BUILDERS[impl](A, cfg), X,
+                              useful_bytes(impl, A, k), ref, rows, **keys)
+            if D is not None and keep("dia band (row 11)"):
                 band, height, x_prep = band_plan(D, device)
                 span = max(D.offsets) - min(D.offsets)
                 S0 = torch.sparse_csr_tensor(
@@ -446,19 +463,19 @@ def main(argv=None):
         rows = turns(rest, rounds, against)
         print(json.dumps({"card": card, "turns": rows}), flush=True)
         return rows
+    wanted = (set(argv[argv.index("--plans") + 1].split(","))
+              if "--plans" in argv else None)
     if "--spmm" in argv:
         ks = SPMM_K
         if "--k" in argv:
             ks = tuple(int(k) for k in argv[argv.index("--k") + 1].split(","))
-        rows = spmm(ks)
+        rows = spmm(ks, wanted)
         print(json.dumps({"card": card, "rows": rows}), flush=True)
         return rows
     sweep, rails_only = "--sweep" in argv, "--rails" in argv
-    timed = list(plans(sweep, rails_only))
+    timed = [p for p in plans(sweep, rails_only) if wanted is None or p[0] in wanted]
     rows = []
-    for name, A in matrices(device):
-        if not any(name in ON[impl] for _, impl, _ in timed):
-            continue
+    for name, A in matrices(device, {m for _, impl, _ in timed for m in ON[impl]}):
         x = seeded_input(A.num_cols, 0, device)
         S = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
                                     size=A.shape)

@@ -17,13 +17,12 @@
 // where k <= 4, a team of T lanes a tile of T C columns, the grid's second
 // dimension the tiles past it:
 //
-//   * main: a warp's G = 32 / T teams take G consecutive rows, a team a
-//     row.  The warp loads the main rows' entries together, coalesced, 128
-//     at a time into shared memory (as csrc/rail_rows.cuh loads a warp's
-//     rows: by the offset where no hub row lies among them, else by a
-//     search over the teams' starts), and each team walks its row's entries
-//     from there in order, one plane's sum at a time, adding each plane to
-//     the row's total as it closes: the plain version's order;
+//   * main: csrc/rail_spmm.cuh's walk, a team a row, each round the
+//     warp's teams' next entries loaded together into shared memory, each
+//     team walking its row's entries from there in order, one plane's sum
+//     at a time, adding each plane to the row's total as it closes: the
+//     plain version's order (the routed and binned SpMMs take the same walk
+//     with one plane);
 //   * hub: a team per (hub virtual row, column tile) loads the virtual
 //     row's entries T at a time, a lane each, and walks them in order from
 //     its lanes' registers by shuffles; a fold kernel adds each hub row's
@@ -36,11 +35,11 @@
 // X (through L2), Y written once.  Row and element offsets of X and Y are
 // 64-bit.
 #include "common.cuh"
+#include "rail_spmm.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSlots = 128;          // entries a warp loads at a time
 
 template <typename Store, typename Acc, int W, int C>
 __global__ void colsort2_spmm_main_kernel(const int* __restrict__ indptr,
@@ -49,102 +48,8 @@ __global__ void colsort2_spmm_main_kernel(const int* __restrict__ indptr,
                                           const Acc* __restrict__ x,
                                           Acc* __restrict__ y, int m, int k,
                                           int V, int thr, int team_shift) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int* const s_col = reinterpret_cast<int*>(smem) + warp * kSlots;
-  Acc* const s_val = reinterpret_cast<Acc*>(
-                         smem + (blockDim.x >> 5) * kSlots * sizeof(int)) +
-                     warp * kSlots;
-  const int T = 1 << team_shift;
-  const int team = lane >> team_shift, tl = lane & (T - 1);
-  const int G = 32 >> team_shift;
-  const long long r =
-      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * G + team;
-  const int c0 = ((static_cast<int>(blockIdx.y) << team_shift) + tl) * C;
-  const bool mine = c0 < k;
-  int start = 0, len = 0;
-  bool main_row = false;
-  if (r < m) {
-    start = __ldg(indptr + r);
-    len = __ldg(indptr + r + 1) - start;
-    main_row = len <= thr;
-  }
-  // the main rows' entries, packed: team t's at [first, first + ls) of the
-  // warp's exclusive scan
-  const int ls = main_row ? len : 0;
-  int incl = ls;
-  for (int off = 1; off < G; off <<= 1) {
-    const int o = __shfl_up_sync(kFull, incl, off << team_shift);
-    if (team >= off) incl += o;
-  }
-  const int first = incl - ls;
-  const int total = __shfl_sync(kFull, incl, 31);
-  // no hub row with entries among the warp's rows: the packed entries are
-  // the stored ones from the first row's start
-  const bool gapless = !__any_sync(kFull, r < m && !main_row && len > 0);
-  const int s0 = __shfl_sync(kFull, start, 0);
-
-  Acc acc[C], sum[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = sum[c] = 0;
-  int left = V;                       // entries the open plane still takes
-  for (int base = 0; base < total; base += kSlots) {
-#pragma unroll
-    for (int q = 0; q < kSlots / 32; ++q) {
-      const int i = base + q * 32 + lane;
-      // the team that holds packed entry i: the last whose first is <= i
-      int t = 0;
-      if (!gapless)
-        for (int step = G >> 1; step > 0; step >>= 1) {
-          const int f = __shfl_sync(kFull, first, (t + step) << team_shift);
-          if (f <= i) t += step;
-        }
-      const int ft = __shfl_sync(kFull, first, t << team_shift);
-      const int st = __shfl_sync(kFull, start, t << team_shift);
-      if (i < total) {
-        const long long e = gapless ? static_cast<long long>(s0) + i
-                                    : static_cast<long long>(st) + (i - ft);
-        s_col[q * 32 + lane] = __ldg(col + e);
-        s_val[q * 32 + lane] = to_acc<Acc>(val[e]);
-      }
-    }
-    __syncwarp();
-    const int lo = max(first, base), hi = min(first + ls, base + kSlots);
-    for (int i = lo; i < hi; i += 4) {   // four rows of X in flight
-      const int n4 = min(4, hi - i);
-      Acc a4[4], xv[4][C];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (q < n4) {
-          a4[q] = s_val[i + q - base];
-          if (mine)
-            load_cols<Acc, W, C>(
-                x + static_cast<long long>(s_col[i + q - base]) * k + c0, xv[q]);
-        }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (q >= n4) break;
-        if (mine) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = fma_rn(a4[q], xv[q][c], acc[c]);
-        }
-        if (--left == 0) {            // the plane closes: fold it in order
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            sum[c] += acc[c];
-            acc[c] = 0;
-          }
-          left = V;
-        }
-      }
-    }
-    __syncwarp();
-  }
-  if (main_row && mine) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) sum[c] += acc[c];
-    store_cols<Acc, W, C>(y + r * k + c0, sum);
-  }
+  rail_spmm::walk<Store, Acc, W, C>(indptr, col, val, x, y, m, k, V, thr,
+                                    team_shift);
 }
 
 // A team of T lanes per (hub virtual row, column tile): part[v, c] = sum
@@ -219,20 +124,14 @@ template <typename Store, typename Acc>
 int launch_main(const void* indptr, const void* col, const void* val,
                 const void* x, void* y, int m, int k, int V, int thr, int width,
                 int cols, int team_shift, int block, void* stream) {
-  long long tiles;
-  if (V < 1 || block % 32 != 0 || block < 32 || block > 1024 ||
-      !tiles_of(k, cols, team_shift, &tiles))
+  dim3 grid;
+  if (V < 1 || !rail_spmm::grid_of(m, k, cols, team_shift, block, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(block >> 5) << (5 - team_shift);
-  const long long blocks = (static_cast<long long>(m) + rows - 1) / rows;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(block >> 5) * kSlots *
-                      (sizeof(int) + sizeof(Acc));
+  if (grid.x == 0) return 0;
   return with_width<Acc>(width, cols, [&](auto w, auto c) {
     colsort2_spmm_main_kernel<Store, Acc, decltype(w)::value, decltype(c)::value>
-        <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles)),
-           block, smem, static_cast<cudaStream_t>(stream)>>>(
+        <<<grid, block, rail_spmm::smem_bytes<Acc>(block),
+           static_cast<cudaStream_t>(stream)>>>(
             static_cast<const int*>(indptr), static_cast<const int*>(col),
             static_cast<const Store*>(val), static_cast<const Acc*>(x),
             static_cast<Acc*>(y), m, k, V, thr, team_shift);

@@ -50,9 +50,10 @@ _SIGNATURES = {
     # nsplit, carry_row, carry_val, block, stream
     "cusp_csr_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i64, _vp, _vp, _vp, _i32,
                        _vp, _vp, _i32, _vp), _TYPED),
-    # indptr, col, val, perm, bins (host), nbins, x, y, block, stream
-    "cusp_binned_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp),
-                         _TYPED),
+    # indptr, col, val, x, y, m, hub_cap, long_rows, n_long, hub_rows, n_hub,
+    # block, stream
+    "cusp_binned_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp,
+                          _i32, _i32, _vp), _TYPED),
     # row, col, val, nnz, x, y, m, carry_row, carry_val, vpt, block, stream
     "cusp_coo_spmv": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _vp, _vp, _i32,
                        _i32, _vp), _TYPED),
@@ -86,9 +87,10 @@ _SIGNATURES = {
     # indptr, col, val, x, y, m, thr, long_rows, n_long, block, stream
     "cusp_routed_spmv": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
                           _vp), _TYPED),
-    # indptr, col, val, X, Y, m, n, k, thr, win_ptr, win_ids, Ws, block, stream
-    "cusp_routed_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp,
-                          _vp, _i32, _i32, _vp), _TYPED),
+    # indptr, col, val, X, Y, m, k, thr, width, cols, team_shift, block,
+    # stream
+    "cusp_routed_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+                          _i32, _i32, _vp), _TYPED),
     # x, y, n, block, stream
     "cusp_stream_triad": ((_vp, _vp, _i64, _i32, _vp), ("f32",)),
     # x, idx, out, rows, passes, from_shared, stream

@@ -1,16 +1,19 @@
-"""Row-binned CSR SpMV: the CUDA kernel's wrapper, its plain PyTorch
-version, and the planner.
+"""Row-binned CSR SpMV and SpMM: the CUDA kernels' wrappers, their plain
+PyTorch version, and the planner.
 
 Replaces the JAX package's row-lane-binned Pallas kernels at their SpMV
 sites, `_binned_kernel` (cusp_autotuned_tpu/kernels/pallas_binned.py:193)
-and `_streamed_kernel` (:274), with one kernel, `csrc/binned_spmv.cu`, in
-the style of the fork's CSR kernel family: the host plan sorts the rows
-into bins by length, each bin runs with its own number of lanes per row,
-and rows longer than `hub_cap` get a block each (in place of the JAX
-segment-sum spill).  With a fixed `threads_per_row` every other row uses
-that one group size.  Its SpMM site, `_binned_spmm_kernel` (:229, and :274
-at K > 0), becomes `csrc/binned_spmm.cu`, which walks the same plan with
-lanes over a tile of up to 32 columns: the reference's CSR x array2d block
+and `_streamed_kernel` (:274), with one kernel, `csrc/binned_spmv.cu`: the
+rows binned by length into three classes, each walked in row order as
+`csrc/rail_rows.cuh` walks the rails' rows (a lane a row of at most
+SHORT_ROW entries, a warp a longer row, a block a row longer than
+`hub_cap`, in place of the JAX segment-sum spill); the plan lists the warp
+and block rows, longest first (`spmv_rows`).  Its SpMM site,
+`_binned_spmm_kernel` (:229, and :274 at K > 0), becomes
+`csrc/binned_spmm.cu`, which walks the bins that `plan_bins` sorts the
+rows into (each bin with its own lanes a row; with a fixed
+`threads_per_row` every other row takes that one group size) with lanes
+over a tile of up to 32 columns: the reference's CSR x array2d block
 kernel.
 """
 
@@ -21,6 +24,7 @@ import torch
 
 from cusp_autotuned_tpu_torch.formats.base import host_array
 from cusp_autotuned_tpu_torch.kernels import _build
+from cusp_autotuned_tpu_torch.kernels.colsort2 import long_rows
 from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
@@ -56,6 +60,17 @@ def plan_bins(indptr, threads_per_row=0, hub_cap=HUB_CAP):
     return perm, np.asarray(bins, dtype=np.int32).reshape(-1, 3)
 
 
+def spmv_rows(indptr, hub_cap=HUB_CAP):
+    """(long, hubs) int32 for host CSR offsets: the rows the SpMV kernel
+    gives a warp (more than SHORT_ROW entries, at most hub_cap) and a block
+    (more than hub_cap), each longest first."""
+    lengths = np.diff(np.asarray(indptr, dtype=np.int64))
+    long = long_rows(indptr, hub_cap)
+    hubs = np.flatnonzero(lengths > hub_cap)
+    return tuple(rows[np.argsort(-lengths[rows], kind="stable")].astype(np.int32)
+                 for rows in (long, hubs))
+
+
 def binned_spmv_plain(indptr, col, val, perm, bins, x, num_rows):
     """The plan walked bin by bin in PyTorch: each bin's rows gather their
     entries and add them up with an index_add_, accumulated in the promoted
@@ -76,21 +91,26 @@ def binned_spmv_plain(indptr, col, val, perm, bins, x, num_rows):
     return y
 
 
-def _check(indptr, col, val, perm, bins, x, shape, rank):
-    """Raise on what the kernels do not take."""
+def _check(arrays, x, shape, rank):
+    """Raise on what the kernels do not take (arrays: build_binned's)."""
     m, n = shape
-    if not (indptr.device == col.device == val.device == perm.device
-            == x.device) or x.device.type != "cuda" or bins.device.type != "cpu":
+    indptr, col, val, perm, bins = (arrays[k] for k in
+                                    ("indptr", "col", "val", "perm", "bins"))
+    lists = (indptr, col, val, perm, *arrays["spmv_rows"])
+    if not all(t.device == x.device for t in lists) or x.device.type != "cuda" \
+            or bins.device.type != "cpu":
         raise InvalidInputException(
-            f"binned kernel needs indptr, col, val, perm and x on one CUDA "
-            f"device and bins on the host (got {indptr.device}, {col.device}, "
-            f"{val.device}, {perm.device}, {x.device}; bins {bins.device})")
+            f"binned kernel needs indptr, col, val, perm, the SpMV's row lists "
+            f"and x on one CUDA device and bins on the host (got {indptr.device}, "
+            f"{col.device}, {val.device}, {perm.device}, {x.device}; bins "
+            f"{bins.device})")
     if val.dtype not in _build.STORAGE or x.dtype != _build.STORAGE[val.dtype][1]:
         raise InvalidInputException(
             f"binned kernel takes f32/bf16 values with f32 x, or f64 with f64 "
             f"(got {val.dtype} values, {x.dtype} x)")
-    if not all(t.dtype == torch.int32 for t in (indptr, col, perm, bins)):
-        raise InvalidInputException("indptr, col, perm and bins must be int32")
+    if not all(t.dtype == torch.int32 for t in lists[:2] + lists[3:] + (bins,)):
+        raise InvalidInputException(
+            "indptr, col, perm, bins and the row lists must be int32")
     if (indptr.shape != (m + 1,) or perm.shape != (m,) or x.dim() != rank
             or x.shape[0] != n or (rank == 2 and x.shape[1] < 1)
             or col.shape != val.shape or bins.dim() != 2 or bins.shape[1] != 3):
@@ -99,28 +119,32 @@ def _check(indptr, col, val, perm, bins, x, shape, rank):
             f"{tuple(perm.shape)}, col {tuple(col.shape)}, val "
             f"{tuple(val.shape)}, x {tuple(x.shape)}, bins {tuple(bins.shape)}, "
             f"matrix {shape}")
-    if not all(t.is_contiguous() for t in (indptr, col, val, perm, bins, x)):
+    if not all(t.is_contiguous() for t in lists + (bins, x)):
         raise InvalidInputException("binned kernel needs contiguous tensors")
 
 
-def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLOCK):
-    """y = A @ x through the row bins.  On CPU tensors this is the plain
-    version; on CUDA tensors it launches the kernel (bins, a small host
-    tensor, travel as kernel arguments; a 2-D x goes to binned_spmm), and
-    raises on what the kernel does not take."""
+def binned_spmv(arrays, x, shape, hub_cap, block=_build.DEFAULT_BLOCK):
+    """y = A @ x through the plan `arrays` (build_binned's).  On CPU
+    tensors this is the plain version; on CUDA tensors it launches the
+    kernel (a 2-D x goes to binned_spmm), and raises on what the kernel does
+    not take."""
     if x.dim() == 2:
-        return binned_spmm(indptr, col, val, perm, bins, x, shape, block)
+        return binned_spmm(arrays, x, shape, block)
     if x.dim() != 1:
         raise NotImplementedException(
             "the binned kernels take x of shape (n,) or (n, k)")
+    a = arrays
     m = shape[0]
-    if x.device.type == "cpu" and val.device.type == "cpu":
-        return binned_spmv_plain(indptr, col, val, perm, bins, x, m)
-    _check(indptr, col, val, perm, bins, x, shape, 1)
+    if x.device.type == "cpu" and a["val"].device.type == "cpu":
+        return binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
+                                 a["bins"], x, m)
+    _check(a, x, shape, 1)
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
-        _build.launch("cusp_binned_spmv", val.dtype, x.device, indptr, col, val,
-                      perm, bins, bins.shape[0], x, y, block)
+        long, hubs = a["spmv_rows"]
+        _build.launch("cusp_binned_spmv", a["val"].dtype, x.device, a["indptr"],
+                      a["col"], a["val"], x, y, m, hub_cap, long, long.numel(), hubs,
+                      hubs.numel(), block)
         binned_spmv.launches += 1
     return y
 
@@ -128,18 +152,21 @@ def binned_spmv(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLO
 binned_spmv.launches = 0
 
 
-def binned_spmm(indptr, col, val, perm, bins, x, shape, block=_build.DEFAULT_BLOCK):
+def binned_spmm(arrays, x, shape, block=_build.DEFAULT_BLOCK):
     """Y = A @ X through the row bins for a dense row-major block X (n, k):
     the plain version on CPU tensors, the SpMM kernel on CUDA tensors."""
+    a = arrays
     m = shape[0]
-    if x.device.type == "cpu" and val.device.type == "cpu":
-        return binned_spmv_plain(indptr, col, val, perm, bins, x, m)
-    _check(indptr, col, val, perm, bins, x, shape, 2)
+    if x.device.type == "cpu" and a["val"].device.type == "cpu":
+        return binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
+                                 a["bins"], x, m)
+    _check(a, x, shape, 2)
     k = x.shape[1]
     y = torch.empty((m, k), dtype=x.dtype, device=x.device)
     if m:
-        _build.launch("cusp_binned_spmm", val.dtype, x.device, indptr, col, val,
-                      perm, bins, bins.shape[0], x, y, k, block)
+        _build.launch("cusp_binned_spmm", a["val"].dtype, x.device, a["indptr"],
+                      a["col"], a["val"], a["perm"], a["bins"], a["bins"].shape[0],
+                      x, y, k, block)
         binned_spmm.launches += 1
     return y
 
@@ -148,9 +175,10 @@ binned_spmm.launches = 0
 
 
 def build_binned(A, config):
-    """Plan A for the binned kernel: its CSR form (other formats converted
-    on the host), the row bins for `threads_per_row` and `hub_cap`, values
-    in the storage dtype that `value_dtype` names, `block_size` threads per
+    """Plan A for the binned kernels: its CSR form (other formats converted
+    on the host), the SpMV's warp and block rows for `hub_cap` (spmv_rows),
+    the SpMM's row bins for `threads_per_row` and `hub_cap`, values in the
+    storage dtype that `value_dtype` names, `block_size` threads per
     block.  An empty matrix raises FormatConversionException (the default
     path serves it), as in the JAX package."""
     if A.dtype.is_complex:
@@ -166,21 +194,24 @@ def build_binned(A, config):
         A = convert(A, "csr")
     if A.nnz == 0:
         raise FormatConversionException("empty matrix — use the default path")
-    perm, bins = plan_bins(host_array(A.indptr), tpr, hub_cap)
+    indptr = host_array(A.indptr)
+    perm, bins = plan_bins(indptr, tpr, hub_cap)
+    rows = spmv_rows(indptr, hub_cap)
     arrays = {"indptr": A.indptr, "col": A.col,
               "val": A.val.to(plan_value_dtype(config, A.dtype)).contiguous(),
               "perm": torch.from_numpy(perm).to(A.device),
-              "bins": torch.from_numpy(bins)}
+              "bins": torch.from_numpy(bins),
+              "spmv_rows": tuple(torch.from_numpy(r).to(A.device) for r in rows)}
     shape = A.shape
 
     def apply(arrays, x):
-        return binned_spmv(arrays["indptr"], arrays["col"], arrays["val"],
-                           arrays["perm"], arrays["bins"], x, shape, block)
+        return binned_spmv(arrays, x, shape, hub_cap, block)
 
     def fn(x):
         return apply(arrays, x)
 
     fn.planned_arrays = arrays
     fn.apply = apply
-    fn.plan_stats = {"impl": "binned", "bins": bins.tolist()}
+    fn.plan_stats = {"impl": "binned", "bins": bins.tolist(), "hub_cap": hub_cap,
+                     "long_rows": int(rows[0].size), "hub_rows": int(rows[1].size)}
     return fn

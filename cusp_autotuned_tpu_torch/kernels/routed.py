@@ -1,24 +1,24 @@
-"""Routed CSR SpMV and SpMM (the SpMM with X staged in shared memory by
-column window): the CUDA kernels' wrappers, their plain PyTorch version,
-and the planner (the port's `routed` impl).
+"""Routed CSR SpMV and SpMM: the CUDA kernels' wrappers, their plain
+PyTorch version, and the planner (the port's `routed` impl).
 
 Replaces the JAX package's routed Pallas kernel, `_routed_kernel`
 (cusp_autotuned_tpu/kernels/pallas_routed.py:426), at its SpMV site (:661)
 with `csrc/routed_spmv.cu` and at its SpMM site (:709) with
 `csrc/routed_spmm.cu`.  On the TPU the rail routes x through 16,384-column
-windows with in-lane takes.  Here the SpMV kernel walks the rows as
+windows with in-lane takes.  Here both kernels read every x through L1/L2:
+staging x in shared memory lost to that on every matrix measured, so the
+plan has no windows.  The SpMV kernel walks the rows as
 `csrc/rail_rows.cuh` says (a lane a row of at most SHORT_ROW entries, the
 warp's lanes loading the entries together, a warp for each longer row of
-`long_rows`) and reads every x through L1/L2: staging x in shared memory
-lost to that on every matrix measured, so `window` shapes the SpMM plan
-alone.  The SpMM kernel keeps the first design: a thread a row, with each
-SpMM window that holds at least window / 8 of the row block's entries
-staged (`plan_windows`).  Rows longer than hub_cap (the JAX default
-max(64, 4 nnz / m)) form the tail, served by the colsort2 hub kernels
-(`colsort2.colsort2_hub`) into the same y: y = routed_main(x) +
-colsort2_tail(x) as one callable, the tail holding whole rows.  As in the
-JAX package, a plan whose tail holds more than half the entries raises
-FormatConversionException: the colsort2 rail is the right kernel there.
+`long_rows`); the SpMM kernel is `csrc/rail_spmm.cuh`'s walk with one
+plane (a team of lanes a row, `spmm_schedule`'s C columns a lane with
+16-byte loads of X), the colsort2 SpMM's main walk.  Rows longer than
+hub_cap (the JAX default max(64, 4 nnz / m)) form the tail, served by the
+colsort2 hub kernels (`colsort2.colsort2_hub`) into the same y: y =
+routed_main(x) + colsort2_tail(x) as one callable, the tail holding whole
+rows.  As in the JAX package, a plan whose tail holds more than half the
+entries raises FormatConversionException: the colsort2 rail is the right
+kernel there.
 """
 
 from __future__ import annotations
@@ -32,40 +32,15 @@ from cusp_autotuned_tpu_torch.kernels.colsort2 import (
     auto_hub_cap, colsort2_hub, hub_plain, hub_tensors, long_rows,
     plan_hub,
 )
-from cusp_autotuned_tpu_torch.kernels.dia import _scale, promoted
+from cusp_autotuned_tpu_torch.kernels.dia import (
+    _scale, alignment, promoted, spmm_schedule,
+)
 from cusp_autotuned_tpu_torch.utils.config import plan_value_dtype
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, InvalidInputException, NotImplementedException,
 )
 
-WINDOW = 16384                     # columns of a window: 64 KB of f32 x
-WINDOWS = (4096, 8192, 16384)      # the `window` axis: 16-64 KB of f32 x
-STAGE_MIN_FILL = 1 / 8             # SpMM: stage a window holding >= window / 8 entries
 MAX_TAIL = 0.5                     # the JAX rail's refusal: tail > half the entries
-
-
-def spmm_window(window, acc_dtype):
-    """Rows of X in an SpMM window: a window and a 32-column tile of X
-    together take at most 128 KB of shared memory."""
-    return window // (16 if acc_dtype.itemsize <= 4 else 32)
-
-
-def plan_windows(row_of, col, m, n, rows_per_block, window):
-    """(win_ptr, win_ids) int32: for each block of `rows_per_block` rows,
-    the ascending windows of `window` columns that hold at least
-    STAGE_MIN_FILL * window of its entries (row_of, col: the entries the
-    kernel walks)."""
-    nrb = -(-m // rows_per_block)
-    nw = max(1, -(-n // window))
-    key = (row_of // rows_per_block) * nw + col // window
-    if nrb * nw <= 4 * key.size + (1 << 20):
-        counts = np.bincount(key, minlength=nrb * nw)
-        cells = np.nonzero(counts >= STAGE_MIN_FILL * window)[0]
-    else:
-        cells, counts = np.unique(key, return_counts=True)
-        cells = cells[counts >= STAGE_MIN_FILL * window]
-    win_ptr = np.searchsorted(cells // nw, np.arange(nrb + 1)).astype(np.int32)
-    return win_ptr, (cells % nw).astype(np.int32)
 
 
 def routed_spmv_plain(indptr, col, val, hub, x, num_rows, thr):
@@ -85,8 +60,8 @@ def routed_spmv_plain(indptr, col, val, hub, x, num_rows, thr):
 
 
 def _check(indptr, col, val, hub, plan, x, shape, rank):
-    """Raise on what the kernels do not take (plan: the kernel's own index
-    tensors, the SpMV's long rows or the SpMM's windows)."""
+    """Raise on what the kernels do not take (plan: the SpMV kernel's long
+    rows, or nothing for the SpMM)."""
     m, n = shape
     tensors = (indptr, col, val, *hub, *plan)
     if not all(t.device == x.device for t in tensors) or x.device.type != "cuda":
@@ -109,18 +84,18 @@ def _check(indptr, col, val, hub, plan, x, shape, rank):
         raise InvalidInputException("routed kernel needs contiguous tensors")
 
 
-def routed_spmv(arrays, x, shape, thr, window, block=_build.DEFAULT_BLOCK):
+def routed_spmv(arrays, x, shape, thr, block=_build.DEFAULT_BLOCK):
     """y = A @ x through the routed plan `arrays` (build_routed's).  On CPU
     tensors this is the plain version; on CUDA tensors it launches the routed kernel and,
     where the plan has a tail, the colsort2 hub pair into the same y (a 2-D
     x goes to routed_spmm), and raises on what the kernels do not take."""
     if x.dim() == 2:
-        return routed_spmm(arrays, x, shape, thr, window, block)
+        return routed_spmm(arrays, x, shape, thr, block)
     if x.dim() != 1:
         raise NotImplementedException(
             "the routed kernels take x of shape (n,) or (n, k)")
     a = arrays
-    m, n = shape
+    m = shape[0]
     if x.device.type == "cpu" and a["val"].device.type == "cpu":
         return routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"], x, m, thr)
     _check(a["indptr"], a["col"], a["val"], a["hub"], (a["long"],), x, shape, 1)
@@ -137,23 +112,24 @@ def routed_spmv(arrays, x, shape, thr, window, block=_build.DEFAULT_BLOCK):
 routed_spmv.launches = 0
 
 
-def routed_spmm(arrays, x, shape, thr, window, block=_build.DEFAULT_BLOCK):
+def routed_spmm(arrays, x, shape, thr, block=_build.DEFAULT_BLOCK):
     """Y = A @ X through the routed plan for a dense row-major block X
     (n, k): the plain version on CPU tensors; on CUDA tensors the routed
-    SpMM kernel over the plan's SpMM windows and the colsort2 SpMM hub pair
-    for the tail."""
+    SpMM kernel (a team of lanes a main row, spmm_schedule's C columns a
+    lane) and the colsort2 SpMM hub pair for the tail."""
     a = arrays
-    m, n = shape
+    m = shape[0]
     if x.device.type == "cpu" and a["val"].device.type == "cpu":
         return routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"], x, m, thr)
-    _check(a["indptr"], a["col"], a["val"], a["hub"], a["windows"], x, shape, 2)
+    _check(a["indptr"], a["col"], a["val"], a["hub"], (), x, shape, 2)
     k = x.shape[1]
     y = torch.empty((m, k), dtype=x.dtype, device=x.device)
     if m:
-        win_ptr, win_ids = a["windows"]
+        width, cols, _, team_shift = spmm_schedule(k, alignment(x, y),
+                                                   x.element_size())
         _build.launch("cusp_routed_spmm", a["val"].dtype, x.device, a["indptr"],
-                      a["col"], a["val"], x, y, m, n, k, thr, win_ptr, win_ids,
-                      spmm_window(window, x.dtype), block)
+                      a["col"], a["val"], x, y, m, k, thr, width, cols,
+                      team_shift, block)
         routed_spmm.launches += 1
         colsort2_hub(a["col"], a["val"], a["hub"], x, y, block)
     return y
@@ -167,26 +143,21 @@ def build_routed(A, config):
     row in ascending order (other formats converted, unsorted rows sorted on
     the host), rows above hub_cap (0: max(64, 4 nnz / m), the JAX default)
     in the colsort2 tail, the rows of more than SHORT_ROW entries below it
-    listed for a warp each, and SpMM windows of spmm_window(window) rows of
-    X (window: 4096 to 16384 columns, default 16384) listed per block of
-    `block_size` rows (plan_windows), values in the storage dtype that
-    `value_dtype` names.  The JAX
-    builder's TPU keys (vrow_planes, vrow_span, win_group, pack8, pack16,
-    stream_x, spmm_kb, scatter_dot and the tail_* keys) are ignored.  An
+    listed for a warp each, values in the storage dtype that `value_dtype`
+    names.  The JAX builder's TPU keys (window, vrow_planes, vrow_span,
+    win_group, pack8, pack16, stream_x, spmm_kb, scatter_dot and the tail_*
+    keys) are ignored: every x is read through L1/L2.  An
     empty matrix, or a tail of more than half the entries, raises
     FormatConversionException."""
     if A.dtype.is_complex:
         raise NotImplementedException("routed kernel supports real dtypes only")
-    window = int(config.get("window") or WINDOW)
-    if window not in WINDOWS:
-        raise NotImplementedException(f"window must be one of {WINDOWS}")
     block = _build.block_size(config)
     if A.format != "csr":
         from cusp_autotuned_tpu_torch.ops.convert import convert
         A = convert(A, "csr")
     if A.nnz == 0:
         raise FormatConversionException("empty matrix — use the default path")
-    m, n = A.shape
+    m = A.shape[0]
     nnz = A.nnz
     indptr = host_array(A.indptr).astype(np.int64)
     lengths = np.diff(indptr)
@@ -204,10 +175,6 @@ def build_routed(A, config):
     if nnz > 1 and np.any((np.diff(col) < 0) & (row_of[1:] == row_of[:-1])):
         order = np.lexsort((col, row_of))           # columns ascending per row
         col = col[order]
-    main = ~is_hub[row_of]
-    acc = _build.STORAGE.get(A.val.dtype, (None, A.val.dtype))[1]
-    spmm_win = plan_windows(row_of[main], col[main], m, n, block,
-                            spmm_window(window, acc))
     long = long_rows(indptr, hub_cap)
     val = A.val[:nnz]
     if order is not None:
@@ -217,20 +184,17 @@ def build_routed(A, config):
               "col": torch.from_numpy(col.astype(np.int32)).to(device),
               "val": val.to(plan_value_dtype(config, A.dtype)).contiguous(),
               "hub": hub_tensors(plan_hub(indptr, np.nonzero(is_hub)[0]), device),
-              "long": torch.from_numpy(long).to(device),
-              "windows": tuple(torch.from_numpy(w).to(device) for w in spmm_win)}
+              "long": torch.from_numpy(long).to(device)}
     shape = A.shape
 
     def apply(arrays, x):
-        return routed_spmv(arrays, x, shape, hub_cap, window, block)
+        return routed_spmv(arrays, x, shape, hub_cap, block)
 
     def fn(x):
         return apply(arrays, x)
 
     fn.planned_arrays = arrays
     fn.apply = apply
-    fn.plan_stats = {"impl": "routed", "window": window, "hub_cap": hub_cap,
-                     "tail": n_tail, "nnz": nnz,
-                     "long_rows": int(long.size),
-                     "staged_spmm_windows": int(spmm_win[1].size)}
+    fn.plan_stats = {"impl": "routed", "hub_cap": hub_cap, "tail": n_tail,
+                     "nnz": nnz, "long_rows": int(long.size)}
     return fn

@@ -19,9 +19,9 @@ impls:
               (csrc/coo_spmv.cu, csrc/coo_spmm.cu), colsort2 (virtual rows
               in K planes and a degree-sorted hub region,
               csrc/colsort2_spmv.cu, csrc/colsort2_spmm.cu), routed (the
-              SpMV walks its rows as colsort2's main rows, the SpMM stages
-              X in shared memory by column window, with a colsort2 tail
-              for the hub rows, csrc/routed_spmv.cu, csrc/routed_spmm.cu)
+              rows walked as colsort2's main rows in one plane, with a
+              colsort2 tail for the hub rows, csrc/routed_spmv.cu,
+              csrc/routed_spmm.cu)
 
 `cuda` stands where the JAX package has `pallas`.  For a matrix on a CUDA
 device the default impl is `cuda` (for a block x, `binned` except on dia),
@@ -31,8 +31,9 @@ own: `block_size` and the plans' axes apply to both shapes of x.
 The tuning spaces mirror the JAX package's with Hopper axes in place of
 its TPU axes (VMEM windows, lanes, int16 packing): `block_size`,
 `threads_per_row`, `values_per_thread`, `vrow_planes` and `vrow_len`
-(colsort2), `window` (routed).  The JAX package's rcm_dia impl is not
-ported yet.
+(colsort2); routed takes only the block (the JAX rail's `window` is a
+VMEM axis: every x is read through L1/L2 here).  The JAX package's rcm_dia
+impl is not ported yet.
 """
 from __future__ import annotations
 
@@ -177,8 +178,7 @@ _SPACE_IMPLS = {
     "hyb": ("default", "via_dia", "cuda", "binned"),
 }
 BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
-# colsort2 and routed take the two larger blocks (routed's SpMM kernel
-# stages a column window in a block's shared memory)
+# colsort2 and routed take the two larger blocks
 WIDE_BLOCKS = (256, 512)
 # binned: 0 = binned by length (up to a warp a row); the nnz-balanced
 # tiles of the `cuda` impl need no lanes-per-row axis
@@ -186,7 +186,6 @@ THREADS_PER_ROW = (0, 1, 4)
 VALUES_PER_THREAD = (4, 8, 16)            # colsort: chunks of 128..512
 VROW_PLANES = (1, 2, 4)                   # colsort2: K planes
 VROW_LENS = (8, 32)                       # colsort2: entries of a virtual row
-WINDOWS = (4096, 8192, 16384)             # routed: columns of an SpMM window
 
 
 def default_config(A, x=None) -> Dict[str, Any]:
@@ -211,8 +210,8 @@ def tuning_space(A) -> TuningSpace:
     kernels/csr.py's ENTRIES_PER_THREAD entries); `threads_per_row`
     binned's lanes per row; `values_per_thread`
     colsort's chunk; `vrow_planes` and `vrow_len` colsort2's planes and
-    virtual-row length, `window` routed's SpMM window, both on blocks
-    of 256 or 512 threads (45 configurations for csr and coo).
+    virtual-row length; colsort2 and routed on blocks of 256 or 512
+    threads (41 configurations for csr and coo).
     Constraints pin each axis to 0 or
     'none' where it does not apply, as the fork pins PREFETCH_TYPE.  The
     opt-in `value_dtype` axis (CUSP_TORCH_TUNE_BF16) adds bf16 storage to
@@ -258,10 +257,6 @@ def tuning_space(A) -> TuningSpace:
                              lambda i, k: (k > 0) == (i == "colsort2"))
         space.add_constraint(("impl", "vrow_len"),
                              lambda i, v: (v > 0) == (i == "colsort2"))
-    if "routed" in impls:
-        space.add_parameter("window", (0, *WINDOWS))
-        space.add_constraint(("impl", "window"),
-                             lambda i, w: (w > 0) == (i == "routed"))
     if search_bf16:
         space.add_parameter("value_dtype", ("none", "bfloat16"))
         space.add_constraint(("impl", "value_dtype"),

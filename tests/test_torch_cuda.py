@@ -210,6 +210,8 @@ def test_binned_kernel_matches_plain_on_card(cuda_device, tpr, hub_cap, block):
     yp = binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"], a["bins"],
                            x, A.num_rows)
     torch.testing.assert_close(y, yp, **TOL["rails"])
+    assert fn.plan_stats["hub_rows"] > 0                    # the 4096-entry row
+    torch.testing.assert_close(fn(x), y, rtol=0, atol=0)    # deterministic
 
 
 @pytest.mark.parametrize("block", [128, 256])
@@ -685,8 +687,7 @@ def _scattered_with_band_host(seed=7):
 
 def _scattered_with_band():
     """20000 x 50000: 8 scattered entries a row plus a band of 41 entries a
-    row, whose SpMM windows a routed row block stages; the columns of every
-    seventh row unsorted."""
+    row; the columns of every seventh row unsorted."""
     from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
     indptr, col, val, shape = _scattered_with_band_host()
     return csr_matrix(indptr, col, val, shape, dtype=torch.float32, device="cuda")
@@ -761,16 +762,15 @@ def test_colsort2_spmm_paths_on_card(cuda_device, k, path):
         assert torch.equal(fn(X), fn(X0))
 
 
-@pytest.mark.parametrize("window", [4096, 8192, 16384])
 @pytest.mark.parametrize("block", [256, 512])
 @pytest.mark.parametrize("matrix", ["rails", "scattered"])
-def test_routed_kernel_matches_plain_on_card(cuda_device, matrix, block, window):
+def test_routed_kernel_matches_plain_on_card(cuda_device, matrix, block):
     """The rails matrix has a tail (its 4096- and 1500-entry rows); the
     scattered one's rows of ~49 entries (8 scattered and a band of 41),
     some unsorted, take a warp each."""
     A = (from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
          if matrix == "rails" else _scattered_with_band())
-    fn = build_routed(A, {"window": window, "block_size": block})
+    fn = build_routed(A, {"block_size": block})
     a, st = fn.planned_arrays, fn.plan_stats
     assert (st["tail"] > 0) == (matrix == "rails")
     assert st["long_rows"] > 0
@@ -782,20 +782,46 @@ def test_routed_kernel_matches_plain_on_card(cuda_device, matrix, block, window)
 
 
 @pytest.mark.parametrize("k", [1, 3, 16, 40])
-@pytest.mark.parametrize("window,block", [(4096, 256), (16384, 512)])
+@pytest.mark.parametrize("block", [256, 512])
 @pytest.mark.parametrize("matrix", ["rails", "scattered"])
-def test_routed_spmm_kernel_matches_plain_on_card(cuda_device, matrix, window,
-                                                  block, k):
+def test_routed_spmm_kernel_matches_plain_on_card(cuda_device, matrix, block, k):
     A = (from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
          if matrix == "rails" else _scattered_with_band())
-    fn = build_routed(A, {"window": window, "block_size": block})
+    fn = build_routed(A, {"block_size": block})
     a, st = fn.planned_arrays, fn.plan_stats
-    assert st["staged_spmm_windows"] > 0
     launched = _rail_case(
         fn, lambda X: routed_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
                                         X, A.num_rows, st["hub_cap"]),
         _block(A.num_cols, k, cuda_device), (routed_spmm, colsort2_hub_spmm))
     assert launched == [1, int(matrix == "rails")]
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("k", SPMM_KS)
+def test_routed_spmm_paths_on_card(cuda_device, k, path):
+    """The routed SpMM (csrc/rail_spmm.cuh's walk with one plane) on X at
+    three alignments, the default hub_cap and 64: against the plain
+    version, equal to the 16-byte path's bits, and equal bit for bit to the
+    colsort2 SpMM with one plane of hub_cap entries, the same walk, on
+    routed's plan (the matrix's rows with their columns sorted)."""
+    from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
+    A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
+    X0 = _block(A.num_cols, k, cuda_device)
+    X = _misaligned(X0, PATHS[path])
+    for cfg in ({}, {"hub_cap": 64, "block_size": 512}):
+        fn = build_routed(A, cfg)
+        a, st = fn.planned_arrays, fn.plan_stats
+        launched = _rail_case(
+            fn, lambda X: routed_spmv_plain(a["indptr"], a["col"], a["val"],
+                                            a["hub"], X, A.num_rows, st["hub_cap"]),
+            X, (routed_spmm, colsort2_hub_spmm))
+        assert launched == [1, 1]
+        assert torch.equal(fn(X), fn(X0))
+        cap = st["hub_cap"]
+        one_plane = build_colsort2(
+            csr_matrix(a["indptr"], a["col"], a["val"], A.shape, device=cuda_device),
+            {"vrow_planes": 1, "vrow_len": cap, "hub_cap": cap})
+        assert torch.equal(fn(X), one_plane(X))
 
 
 def _edge_rows(lengths, n, seed, tail_cols=0):
@@ -813,6 +839,9 @@ def _edge_rows(lengths, n, seed, tail_cols=0):
 
 def _rail_plain(impl, fn, A):
     a, st = fn.planned_arrays, fn.plan_stats
+    if impl == "binned":
+        return lambda x: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
+                                           a["bins"], x, A.num_rows)
     if impl == "colsort2":
         return lambda x: colsort2_spmv_plain(a["indptr"], a["col"], a["val"], a["hub"],
                                              x, A.num_rows, st["vrow_planes"],
@@ -840,21 +869,30 @@ def _edges_host():
     ("colsort2", "edges", {"vrow_planes": 4, "vrow_len": 0, "hub_cap": 64,
                            "block_size": 512}),
     ("colsort2", "lp", {}),
-    ("routed", "edges", {"hub_cap": 64, "window": 4096}),
+    ("routed", "edges", {"hub_cap": 64}),
     ("routed", "edges", {"hub_cap": 64, "block_size": 512}),
     ("routed", "lp", {}),
-    ("routed", "tail", {"window": 4096}),
+    ("routed", "tail", {}),
+    ("binned", "edges", {"hub_cap": 64}),
+    ("binned", "edges", {"hub_cap": 16, "block_size": 512}),
+    ("binned", "lp", {"hub_cap": 2048}),
+    ("binned", "lp", {"hub_cap": 1300, "block_size": 128}),
+    ("binned", "tail", {}),
 ])
 def test_rail_row_walk_edges_match_plain_on_card(cuda_device, impl, matrix, cfg):
     """Every edge of the shared row walk against the plain version, two calls
-    equal bit for bit; on LP's shape every row takes a warp."""
+    equal bit for bit; on LP's shape every row takes a warp (binned: a
+    warp or, past hub_cap 1300, a block)."""
     A = from_scipy(_edges_host()[matrix], "csr", dtype=torch.float32,
                    device=cuda_device)
-    fn = (build_colsort2 if impl == "colsort2" else build_routed)(A, cfg)
+    build = {"colsort2": build_colsort2, "routed": build_routed,
+             "binned": build_binned}[impl]
+    fn = build(A, cfg)
     st = fn.plan_stats
     if matrix == "lp":
-        assert st["long_rows"] == A.num_rows
-    counter = colsort2_spmv if impl == "colsort2" else routed_spmv
+        assert st["long_rows"] + st.get("hub_rows", 0) == A.num_rows
+    counter = {"colsort2": colsort2_spmv, "routed": routed_spmv,
+               "binned": binned_spmv}[impl]
     launched = _rail_case(fn, _rail_plain(impl, fn, A), _x(A.num_cols, cuda_device),
                           (counter,))
     assert launched == [1]
@@ -871,15 +909,16 @@ def test_routed_spmv_is_the_same_walk_at_every_window_on_card(cuda_device, windo
     assert torch.equal(y, build_routed(A, {"hub_cap": 64})(x))
 
 
-@pytest.mark.parametrize("impl", ["colsort2", "routed"])
+@pytest.mark.parametrize("impl", ["colsort2", "routed", "binned"])
 def test_rail_row_walk_of_a_band_is_the_whole_walk_on_card(cuda_device, impl):
     """Rows 300..2599 planned alone (as shard_planned_blocks plans a band,
     the whole matrix's hub_cap) give the whole plan's y on those rows bit
     for bit: each row's sum is taken in an order fixed by the row."""
     S = _edges_host()["edges"]
     cfg = {"vrow_planes": 2, "vrow_len": 32, "hub_cap": 64} if impl == "colsort2" \
-        else {"hub_cap": 64, "window": 4096}
-    build = build_colsort2 if impl == "colsort2" else build_routed
+        else {"hub_cap": 64}
+    build = {"colsort2": build_colsort2, "routed": build_routed,
+             "binned": build_binned}[impl]
     x = _x(S.shape[1], cuda_device)
     whole = build(from_scipy(S, "csr", dtype=torch.float32, device=cuda_device), cfg)(x)
     band = build(from_scipy(S[300:2600], "csr", dtype=torch.float32,
@@ -887,7 +926,7 @@ def test_rail_row_walk_of_a_band_is_the_whole_walk_on_card(cuda_device, impl):
     assert torch.equal(band, whole[300:2600])
 
 
-@pytest.mark.parametrize("impl", ["colsort2", "routed"])
+@pytest.mark.parametrize("impl", ["colsort2", "routed", "binned"])
 @pytest.mark.parametrize("store", ["bfloat16", "float64"])
 @pytest.mark.parametrize("k", [0, 5])
 def test_new_rails_other_storage_on_card(cuda_device, impl, store, k):

@@ -23,9 +23,7 @@ from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
 from cusp_autotuned_tpu_torch.kernels.colsort2 import (
     SHORT_ROW, build_colsort2, colsort2_spmv_plain, long_rows, plan_colsort2,
 )
-from cusp_autotuned_tpu_torch.kernels.routed import (
-    STAGE_MIN_FILL, build_routed, routed_spmv_plain, spmm_window,
-)
+from cusp_autotuned_tpu_torch.kernels.routed import build_routed, routed_spmv_plain
 
 from tests.torch_parity import one_thread  # noqa: F401
 
@@ -252,39 +250,16 @@ def test_long_rows_and_the_thresholds_at_the_edges():
 
 
 def test_routed_walk_at_the_edge_of_x():
-    """n = 4,998 leaves the second 4096-column window 902 columns wide: rows
-    that read x's last 300 columns walk to scipy's y, and the SpMM plan's
-    windows (of spmm_window(4096) rows of X) are those that hold an eighth
-    of a window's entries, the clipped last one among them."""
+    """n = 4,998: rows that read x's last 300 columns walk to scipy's y."""
     B, n = 64, 4998
     cols = np.repeat(np.arange(n - 300, n), 4)
     rows = np.arange(cols.size) % B
     S = sp.csr_matrix((np.random.RandomState(2).uniform(-1, 1, cols.size),
                        (rows, cols)), shape=(B, n))
     x = _x(n)
-    fn, y, writes = _routed_walk(_port(S), {"window": 4096, "block_size": B}, x)
+    _, y, writes = _routed_walk(_port(S), {"block_size": B}, x)
     assert (writes == 1).all()
     np.testing.assert_allclose(y, S @ x, **TOL)
-    ws = spmm_window(4096, torch.float64)
-    want = np.flatnonzero(np.bincount(cols // ws) >= STAGE_MIN_FILL * ws)
-    win_ptr, win_ids = (t.tolist() for t in fn.planned_arrays["windows"])
-    assert win_ptr == [0, want.size] and win_ids == want.tolist()
-    assert want[-1] == (n - 1) // ws
-
-
-@pytest.mark.parametrize("window", [4096, 8192, 16384])
-def test_window_shapes_the_spmm_plan_alone(window):
-    """The SpMV reads every x through L1/L2: its plan (indptr, sorted
-    columns, values, long rows, hub region) is the same at every window;
-    only the SpMM windows follow `window`."""
-    S = _matrix(PATTERNS["mixed lengths with long and hub rows"], seed=4, n=20000)
-    A = _port(S)
-    base = build_routed(A, {"hub_cap": 64}).planned_arrays
-    got = build_routed(A, {"hub_cap": 64, "window": window}).planned_arrays
-    for key in ("indptr", "col", "val", "long"):
-        assert torch.equal(got[key], base[key])
-    assert all(torch.equal(a, b) for a, b in zip(got["hub"], base["hub"]))
-    assert (torch.equal(got["windows"][1], base["windows"][1])) == (window == 16384)
 
 
 def test_short_rows_empties_the_longer_rows_alone():

@@ -32,9 +32,7 @@ from cusp_autotuned_tpu_torch.autotune import (
 from cusp_autotuned_tpu_torch.backend.reference import from_scipy, reference_spmv
 from cusp_autotuned_tpu_torch.kernels import build_spmv, tuning_space
 from cusp_autotuned_tpu_torch.kernels.colsort2 import colsort2_hub
-from cusp_autotuned_tpu_torch.kernels.routed import (
-    STAGE_MIN_FILL, build_routed, plan_windows, routed_spmv, spmm_window,
-)
+from cusp_autotuned_tpu_torch.kernels.routed import build_routed, routed_spmv
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, NotImplementedException,
 )
@@ -116,20 +114,6 @@ def test_tail_dominant_pattern_is_refused_by_both():
     assert 0.5 < lengths[lengths > 64].sum() / lengths.sum() < 0.6
 
 
-def test_plan_windows_stage_the_full_cells():
-    """A window is staged for a row block where the block holds at least
-    window / 8 of its entries; the lists are ascending per block."""
-    W, R = 4096, 4
-    row = np.r_[np.zeros(600, int), np.full(10, 1), np.full(512, 5)]
-    col = np.r_[np.arange(600), 9000 + np.arange(10), 4096 * 2 + np.arange(512)]
-    win_ptr, win_ids = plan_windows(row, col, 8, 20000, R, W)
-    assert win_ptr.tolist() == [0, 1, 2] and win_ids.tolist() == [0, 2]
-    assert STAGE_MIN_FILL * W == 512
-    # the SpMM windows: a window and a 32-column tile in 128 KB
-    assert spmm_window(16384, torch.float32) * 32 * 4 == 128 * 1024
-    assert spmm_window(16384, torch.float64) * 32 * 8 == 128 * 1024
-
-
 def test_routed_sorts_unsorted_rows_and_refuses_bad_configs():
     from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
     indptr = np.array([0, 3, 5])
@@ -141,7 +125,11 @@ def test_routed_sorts_unsorted_rows_and_refuses_bad_configs():
     x = torch.arange(5.0)
     np.testing.assert_allclose(fn(x).numpy(), reference_spmv(A, x))
     with pytest.raises(NotImplementedException):
-        build_routed(A, {"window": 1000})
+        build_routed(A, {"block_size": 1000})
+    # the JAX rail's window is a TPU key: accepted and ignored
+    same = build_routed(A, {"window": 1000}).planned_arrays
+    assert all(torch.equal(same[key], fn.planned_arrays[key])
+               for key in ("indptr", "col", "val", "long"))
     with pytest.raises(FormatConversionException):
         build_spmv(from_scipy(sp.coo_matrix((6, 7), dtype=np.float32), "csr",
                               device="cpu"), {"impl": "routed"})
@@ -150,12 +138,12 @@ def test_routed_sorts_unsorted_rows_and_refuses_bad_configs():
 @pytest.mark.parametrize("fmt", ["csr", "coo", "ell", "ellr"])
 def test_space_offers_both_rails_and_every_configuration_plans(fmt):
     """Every configuration of the new impls plans, or is a refused
-    conversion; the walk stays at 45 configurations."""
+    conversion; the walk stays at 41 configurations."""
     S = _powerlaw(400, 2400, seed=6)
     A = from_scipy(S if fmt != "ell" else _random_scatter(), fmt,
                    dtype=torch.float32, device="cpu")
     cfgs = configurations_for(A)
-    assert len(cfgs) == 45
+    assert len(cfgs) == 41
     impls = {c["impl"] for c in cfgs}
     assert {"colsort2", "routed"} <= impls == set(tuning_space(A).parameters[0].values)
     for cfg in cfgs:
@@ -164,7 +152,7 @@ def test_space_offers_both_rails_and_every_configuration_plans(fmt):
         assert cfg["block_size"] in (256, 512)
         assert (cfg["vrow_planes"] > 0) == (cfg["vrow_len"] > 0) == \
             (cfg["impl"] == "colsort2")
-        assert (cfg["window"] > 0) == (cfg["impl"] == "routed")
+        assert "window" not in cfg
         try:
             build_spmv(A, cfg)
         except FormatConversionException:
