@@ -228,7 +228,8 @@ WRAPPER_KERNELS = {
     "binned_spmv": ("binned_spmv_kernel",),
     "coo_spmv": ("coo_chunk_kernel", "coo_fold_kernel"),
     "stream_triad": ("stream_triad_kernel",), "dia_spmm": ("dia_spmm_kernel",),
-    "binned_spmm": ("binned_spmm_kernel",),
+    # the walk; its hub rows go through the colsort2 hub pair, counted there
+    "binned_spmm": ("binned_spmm_walk_kernel",),
     "coo_spmm": ("coo_spmm_chunk_kernel", "coo_spmm_fold_kernel"),
     "colsort2_spmv": ("colsort2_main_kernel",),
     "colsort2_spmm": ("colsort2_spmm_main_kernel",),
@@ -819,7 +820,8 @@ def rails_spmm_phase(device, triad_gbps, matrices):
         fb = build_binned(A, cfg)
         a = fb.planned_arrays
         out["binned_spmm"][name] = compare(
-            f"binned {name}", lambda: fb(X),
+            f"binned {name} ({fb.plan_stats['spmm_hub_rows']} rows above spmm_cap "
+            f"{fb.plan_stats['spmm_cap']})", lambda: fb(X),
             lambda: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
                                       a["bins"], X, m),
             RAIL_RTOL, RAIL_ATOL, nnz * 8 + (m + 1) * 4 + (n + m) * k * 4,
@@ -845,6 +847,7 @@ def rails_spmm_phase(device, triad_gbps, matrices):
                                         X.abs().double(), mid.num_rows).float(),
                mid.num_cols, (3, 5, 16, 33, 130), device,
                across=False)     # a team's segment of a chunk is vpt T entries
+    binned_spmm_edges(device)
     log("rows 5' and 6', L2-cold: useful bytes binned nnz*(4+4) + (m+1)*4 + "
         "(n+m)*k*4, coo nnz*(4+4+4) + (n+m)*k*4")
     for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
@@ -860,6 +863,54 @@ def rails_spmm_phase(device, triad_gbps, matrices):
             del X
         del S
     return {k: v["poisson5pt 1000x1000 f32 k=16"] for k, v in out.items()}
+
+
+def binned_spmm_edges(device):
+    """The binned SpMM on a skewed 20000-row matrix with its rows' columns
+    sorted (routed's plan), at routed's default hub_cap and 32: against the
+    plain version on X at three alignments for threads_per_row 0, and at
+    every k of SPMM_EDGE_KS equal bit for bit to the routed SpMM (the same
+    walk in row order, the same hub pair) for threads_per_row 0, 1 and 4,
+    on X 0 and 4 bytes past a 16-byte boundary."""
+    from cusp_autotuned_tpu_torch.benchmarks import spmv_tiles
+    from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
+    from cusp_autotuned_tpu_torch.kernels.binned import binned_spmv_plain, build_binned
+    from cusp_autotuned_tpu_torch.kernels.routed import build_routed
+
+    log("binned_spmm: the schedule's edges on a skewed 20000-row matrix with "
+        "sorted columns, at routed's default hub_cap and 32; its Y equal bit for "
+        "bit to the routed SpMM's at the same hub_cap for threads_per_row 0, 1 "
+        "and 4")
+    E = spmv_tiles.skewed(20_000, 5, device)
+    for cfg in ({}, {"hub_cap": 32}):
+        fr = build_routed(E, {**ROUTED_CONFIG, **cfg})
+        r, cap = fr.planned_arrays, fr.plan_stats["hub_cap"]
+        Es = csr_matrix(r["indptr"], r["col"], r["val"], E.shape, device=device)
+        fbs = {tpr: build_binned(Es, {"hub_cap": cap, "threads_per_row": tpr})
+               for tpr in (0, 1, 4)}
+        a = fbs[0].planned_arrays
+
+        def plain(X, a=a, abs_=False):
+            return binned_spmv_plain(
+                a["indptr"], a["col"], a["val"].abs().double() if abs_ else a["val"],
+                a["perm"], a["bins"], X.abs().double() if abs_ else X, E.num_rows)
+        spmm_edges(f"binned_spmm hub_cap {cap} ({fbs[0].plan_stats['spmm_hub_rows']} "
+                   f"hub rows)", fbs[0], plain, lambda X: plain(X, abs_=True).float(),
+                   E.num_cols, SPMM_EDGE_KS, device)
+        for k in SPMM_EDGE_KS:
+            X = seeded_block(E.num_cols, k, 6, device)
+            for offset in (0, 1):
+                Xo = misaligned(X, offset)
+                Yr = fr(Xo)
+                for tpr, fb in fbs.items():
+                    if not torch.equal(fb(Xo), Yr):
+                        raise RuntimeError(
+                            f"binned_spmm hub_cap {cap} threads_per_row {tpr} k={k} "
+                            f"X +{4 * offset} B: Y differs from the routed SpMM's")
+        log(f"  binned_spmm hub_cap {cap}: Y of threads_per_row 0, 1 and 4 equal "
+            f"to one another and to the routed SpMM's bit for bit at k = "
+            f"{SPMM_EDGE_KS}, X 0 and 4 bytes past a 16-byte boundary")
+        del fr, r, Es, fbs, a, X, Xo, Yr
 
 
 def random_csr(m, n, density, seed, device, eye=False):

@@ -43,7 +43,8 @@ here.
 poisson5pt 1000x1000 as DIA, its band twin (row 11) on band 0 of four of
 the same matrix (the banded via_dia plan's block apply), and the COO SpMM
 (row 6'), the colsort2 SpMM (row 7, the SpMV rows' two plans), the binned
-SpMM (row 5') and the routed SpMM (row 8, the SpMV rows' plans) on
+SpMM (row 5', its rows binned by length and, "binned tpr=1", in row order)
+and the routed SpMM (row 8, the SpMV rows' plans) on
 poisson5pt 1000x1000 and the skewed 1M.  Each beside cuSPARSE on the same X and its
 bound: the matrix once (DIA: its padded diagonals), X read and Y written
 once.
@@ -94,9 +95,23 @@ def on_dia(build_dia):
     return build
 
 
+def binned_bins_ascending(A, config):
+    """The binned plan with its SpMM walk list in the bins' own order, the
+    fewest lanes a row first: the order that the shipped list reverses, so
+    that the longest rows' warps start first.  Measured, never shipped."""
+    from cusp_autotuned_tpu_torch.kernels.binned import spmm_walk
+    fn = build_binned(A, config)
+    a = fn.planned_arrays
+    walk = spmm_walk(a["indptr"].cpu().numpy(), a["perm"].cpu().numpy(),
+                     a["bins"].numpy()[::-1], fn.plan_stats["spmm_cap"])
+    a["walk"] = tuple(torch.from_numpy(t).to(A.device) for t in walk)
+    return fn
+
+
 BUILDERS = {"cuda": build_csr, "colsort": build_colsort,
             "colsort2": build_colsort2, "routed": build_routed,
-            "binned": build_binned, "dia": on_dia(build_dia)}
+            "binned": build_binned, "dia": on_dia(build_dia),
+            "binned_ascending": binned_bins_ascending}
 # the matrices each impl is timed on
 RAIL_MATRICES = ("poisson5pt 1000x1000", "skewed 1M", "Economics", "LP")
 ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
@@ -108,12 +123,15 @@ ON = {"cuda": ("poisson5pt 1000x1000", "skewed 1M", "LP",
       "binned": ("poisson5pt 1000x1000", "skewed 1M")}
 # plans that only --turns times
 TURN_PLANS = {"routed block=512": ("routed", {"block_size": 512}),
-              "dia default": ("dia", {}), "binned default": ("binned", {})}
+              "dia default": ("dia", {}), "binned default": ("binned", {}),
+              "binned tpr=1": ("binned", {"threads_per_row": 1}),
+              "binned bins ascending": ("binned_ascending", {})}
 # the SpMM plans --spmm times at every k beside the DIA and COO SpMMs
 SPMM_PLANS = (("colsort2 K=2 V=8", "colsort2", {"vrow_planes": 2, "vrow_len": 8,
                                                 "block_size": 256}),
               ("colsort2 default", "colsort2", {}),
               ("binned default", "binned", {}),
+              ("binned tpr=1", "binned", {"threads_per_row": 1}),
               ("routed default", "routed", {}))
 
 

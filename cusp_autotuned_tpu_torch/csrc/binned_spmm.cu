@@ -5,153 +5,97 @@
 // _binned_spmm_kernel (kernels/pallas_binned.py:229, launched from :624),
 // and the K > 0 use of the streamed site (:422, _streamed_kernel :274).
 // Those read each (Bs, 128) entry block once and loop over the k columns
-// held in VMEM.  Here the design is the reference's CSR x array2d block
-// kernel (cusp/system/cuda/detail/multiply/csr_block_spmv.h:187-226): a
-// team of T lanes, T the least power of two >= k capped at 32, spans a tile
-// of T columns; the team walks one row's entries in order, so each entry's
-// value and column index are read once per tile (one broadcast load for the
-// team) and the lanes read T consecutive values of a row of X.  A k above
-// 32 takes several tiles.  It walks the SpMV plan (perm, bins), so rows come
-// in the plan's bin order and the rows of a warp have like lengths:
+// held in VMEM.  The first kernel here was the reference's CSR x array2d
+// block kernel: a team of T <= 32 lanes a row over a tile of T columns with
+// 4-byte loads of X, every row's entries read again for each tile past 32
+// columns, and a block a hub row whose teams added round robin.  Now it is
+// csrc/rail_spmm.cuh's walk with one plane over the plan's walk list
+// (kPerm): slot s walks row rows[s], its entries [bounds[s].x,
+// bounds[s].y).  The list holds the rows of at most spmm_cap entries in the
+// order of plan_bins' bins, the bins of most lanes a row first (by length
+// with threads_per_row 0, so that rows of like length share a warp and the
+// longest chains start first; row order with a fixed group).  A team of T
+// lanes a row, C columns a lane with 16-byte loads and stores where k and
+// the alignment allow (kernels/dia.py spmm_schedule), the warp's teams'
+// entries loaded together each round.  spmm_cap is hub_cap, or the rails'
+// threshold max(64, 4 nnz / m) where that is lower: a row the walk takes
+// is a serial chain of its team, and a warp's teams wait on its longest
+// (kernels/binned.py spmm_walk).  The longer rows are left to the colsort2
+// hub pair (colsort2_spmm.cu), into the same Y.
 //
-//   * a bin of group G >= 1 (the SpMV's lanes per row): 32 / T rows per
-//     warp, one team each, per tile;
-//   * group 0 (rows longer than hub_cap): a block per (row, tile), whose
-//     teams split the row's entries round robin and add their sums column
-//     by column in shared memory, in team order.
-//
-// Each (row, column) of Y is written by exactly one team: no atomics, the
-// same result on every run.  Bound by bytes: per entry a value and a column
-// index per tile, the gathered rows of X (through L2), and Y written once.
-// A small k leaves lanes idle: k = 3 runs teams of 4 with one lane idle.
-// Row and element offsets of X and Y are 64-bit: 1M rows x k = 128 passes
-// 2^27 elements, and n * k can pass 2^31.
+// Each row's sum is serial in entry order from zero, whatever k, C, W, T or
+// bin order: its Y equals the routed SpMM's at the same threshold bit for
+// bit where the rows hold their columns in the same order.  Each walked row
+// of Y is written once, by its team: no atomics, the same result on every
+// run.  Bound by bytes: per entry a value and a column index, per walked row
+// its id and bounds, the gathered rows of X (through L2), Y written once.
+// Row and element offsets of X and Y are 64-bit.
 #include "common.cuh"
+#include "rail_spmm.cuh"
 
 namespace {
 
-constexpr int kMaxBins = 8;
-constexpr int kMaxBlock = 1024;
-
-struct Bins {
-  int n;
-  int first_block[kMaxBins + 1];   // bin b owns blocks [first_block[b], first_block[b+1])
-  int row_start[kMaxBins];         // its rows are perm[row_start[b] : row_start[b] + count[b]]
-  int count[kMaxBins];
-  int group[kMaxBins];             // > 0: a team per row; 0: a block per row
-};
-
-template <typename Store, typename Acc>
-__global__ void binned_spmm_kernel(const int* __restrict__ indptr,
-                                   const int* __restrict__ col,
-                                   const Store* __restrict__ val,
-                                   const int* __restrict__ perm, Bins bins,
-                                   const Acc* __restrict__ x,
-                                   Acc* __restrict__ y, int k, int tile,
-                                   int ntiles) {
-  int b = 0;
-  while (b + 1 < bins.n && static_cast<int>(blockIdx.x) >= bins.first_block[b + 1]) ++b;
-  const int local_block = static_cast<int>(blockIdx.x) - bins.first_block[b];
-  const int teams = static_cast<int>(blockDim.x) / tile;
-  const int team = static_cast<int>(threadIdx.x) / tile;
-  const int lane = static_cast<int>(threadIdx.x) & (tile - 1);
-
-  if (bins.group[b] == 0) {
-    __shared__ Acc part[kMaxBlock];
-    const int r = perm[bins.row_start[b] + local_block / ntiles];
-    const int c = (local_block % ntiles) * tile + lane;
-    const bool live = c < k;
-    const int stop = indptr[r + 1];
-    Acc acc = 0;
-    if (live)
-      for (int e = indptr[r] + team; e < stop; e += teams)
-        acc += to_acc<Acc>(val[e]) * x[static_cast<long long>(col[e]) * k + c];
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    if (team == 0 && live) {
-      Acc total = 0;
-      for (int t = 0; t < teams; ++t) total += part[t * tile + lane];
-      y[static_cast<long long>(r) * k + c] = total;
-    }
-    return;
-  }
-
-  const long long item = static_cast<long long>(local_block) * teams + team;
-  const long long local = item / ntiles;
-  const int c = static_cast<int>(item - local * ntiles) * tile + lane;
-  if (local >= bins.count[b] || c >= k) return;
-  const int r = perm[bins.row_start[b] + local];
-  const int stop = indptr[r + 1];
-  Acc acc = 0;
-#pragma unroll 4
-  for (int e = indptr[r]; e < stop; ++e)
-    acc += to_acc<Acc>(val[e]) * x[static_cast<long long>(col[e]) * k + c];
-  y[static_cast<long long>(r) * k + c] = acc;
+template <typename Store, typename Acc, int W, int C>
+__global__ void binned_spmm_walk_kernel(const int* __restrict__ col,
+                                        const Store* __restrict__ val,
+                                        const int* __restrict__ rows,
+                                        const int2* __restrict__ bounds,
+                                        const Acc* __restrict__ x,
+                                        Acc* __restrict__ y, int slots, int k,
+                                        int team_shift) {
+  // every listed row is the walk's: no row is left to a threshold
+  rail_spmm::walk<Store, Acc, W, C, true>(nullptr, col, val, rows, bounds, x, y,
+                                          slots, k, rail_spmm::kNoPlanes, INT_MAX,
+                                          team_shift);
 }
 
 template <typename Store, typename Acc>
-int launch(const void* indptr, const void* col, const void* val,
-           const void* perm, const void* bins_host, int nbins, const void* x,
-           void* y, int k, int block, void* stream) {
-  if (nbins < 1 || nbins > kMaxBins || k < 1 || block % 32 != 0 ||
-      block > kMaxBlock)
+int launch(const void* col, const void* val, const void* rows,
+           const void* bounds, int slots, const void* x, void* y, int k,
+           int width, int cols, int team_shift, int block, void* stream) {
+  dim3 grid;
+  if (slots < 0 ||
+      !rail_spmm::grid_of(slots, k, cols, team_shift, block, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  int tile = 1;
-  while (tile < k && tile < 32) tile <<= 1;
-  const int ntiles = (k + tile - 1) / tile;
-  const int teams = block / tile;
-  const int* desc = static_cast<const int*>(bins_host);   // (row_start, count, group) per bin
-  Bins bins{};
-  bins.n = nbins;
-  long long blocks = 0;
-  for (int b = 0; b < nbins; ++b) {
-    bins.row_start[b] = desc[3 * b];
-    bins.count[b] = desc[3 * b + 1];
-    bins.group[b] = desc[3 * b + 2];
-    const int g = bins.group[b];
-    if (g < 0 || g > 32 || (g & (g - 1)) != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    bins.first_block[b] = static_cast<int>(blocks);
-    const long long items = static_cast<long long>(bins.count[b]) * ntiles;
-    blocks += g == 0 ? items : (items + teams - 1) / teams;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  bins.first_block[nbins] = static_cast<int>(blocks);
-  if (blocks == 0) return 0;
-  binned_spmm_kernel<Store, Acc><<<static_cast<unsigned>(blocks), block, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const int*>(col),
-      static_cast<const Store*>(val), static_cast<const int*>(perm), bins,
-      static_cast<const Acc*>(x), static_cast<Acc*>(y), k, tile, ntiles);
-  return static_cast<int>(cudaGetLastError());
+  if (grid.x == 0) return 0;
+  return with_width<Acc>(width, cols, [&](auto w, auto c) {
+    binned_spmm_walk_kernel<Store, Acc, decltype(w)::value, decltype(c)::value>
+        <<<grid, block, rail_spmm::smem_bytes<Acc>(block),
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(col), static_cast<const Store*>(val),
+            static_cast<const int*>(rows), static_cast<const int2*>(bounds),
+            static_cast<const Acc*>(x), static_cast<Acc*>(y), slots, k,
+            team_shift);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-int cusp_binned_spmm_f32(const void* indptr, const void* col, const void* val,
-                         const void* perm, const void* bins, int nbins,
-                         const void* x, void* y, int k, int block,
+int cusp_binned_spmm_f32(const void* col, const void* val, const void* rows,
+                         const void* bounds, int slots, const void* x, void* y,
+                         int k, int width, int cols, int team_shift, int block,
                          void* stream) {
-  return launch<float, float>(indptr, col, val, perm, bins, nbins, x, y, k,
-                              block, stream);
+  return launch<float, float>(col, val, rows, bounds, slots, x, y, k, width, cols,
+                              team_shift, block, stream);
 }
 
-int cusp_binned_spmm_bf16(const void* indptr, const void* col, const void* val,
-                          const void* perm, const void* bins, int nbins,
-                          const void* x, void* y, int k, int block,
+int cusp_binned_spmm_bf16(const void* col, const void* val, const void* rows,
+                          const void* bounds, int slots, const void* x, void* y,
+                          int k, int width, int cols, int team_shift, int block,
                           void* stream) {
-  return launch<__nv_bfloat16, float>(indptr, col, val, perm, bins, nbins, x,
-                                      y, k, block, stream);
+  return launch<__nv_bfloat16, float>(col, val, rows, bounds, slots, x, y, k,
+                                      width, cols, team_shift, block, stream);
 }
 
-int cusp_binned_spmm_f64(const void* indptr, const void* col, const void* val,
-                         const void* perm, const void* bins, int nbins,
-                         const void* x, void* y, int k, int block,
+int cusp_binned_spmm_f64(const void* col, const void* val, const void* rows,
+                         const void* bounds, int slots, const void* x, void* y,
+                         int k, int width, int cols, int team_shift, int block,
                          void* stream) {
-  return launch<double, double>(indptr, col, val, perm, bins, nbins, x, y, k,
-                                block, stream);
+  return launch<double, double>(col, val, rows, bounds, slots, x, y, k, width,
+                                cols, team_shift, block, stream);
 }
 
 }  // extern "C"

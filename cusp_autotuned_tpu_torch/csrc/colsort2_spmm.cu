@@ -48,8 +48,8 @@ __global__ void colsort2_spmm_main_kernel(const int* __restrict__ indptr,
                                           const Acc* __restrict__ x,
                                           Acc* __restrict__ y, int m, int k,
                                           int V, int thr, int team_shift) {
-  rail_spmm::walk<Store, Acc, W, C>(indptr, col, val, x, y, m, k, V, thr,
-                                    team_shift);
+  rail_spmm::walk<Store, Acc, W, C, false>(indptr, col, val, nullptr, nullptr,
+                                           x, y, m, k, V, thr, team_shift);
 }
 
 // A team of T lanes per (hub virtual row, column tile): part[v, c] = sum

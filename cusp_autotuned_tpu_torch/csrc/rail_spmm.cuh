@@ -1,18 +1,24 @@
-// The CSR SpMM row walk that the colsort2 and routed SpMM kernels share
-// (colsort2_spmm.cu, routed_spmm.cu): Y[r, c] = sum of val[e] * X[col[e], c]
-// over row r's entries, for the rows of at most thr entries, with X (n, k)
-// and Y (m, k) row-major and contiguous.
+// The CSR SpMM row walk that the colsort2, routed and binned SpMM kernels
+// share (colsort2_spmm.cu, routed_spmm.cu, binned_spmm.cu): Y[r, c] = sum
+// of val[e] * X[col[e], c] over row r's entries, for the rows of at most
+// thr entries, with X (n, k) and Y (m, k) row-major and contiguous.
 //
 // The columns follow the DIA SpMM's schedule (kernels/dia.py
 // spmm_schedule): a lane takes C columns with W-value loads and stores (16
 // bytes where k and the alignment allow), all k columns where k <= 4, a team
 // of T lanes a tile of T C columns, the grid's second dimension the tiles
-// past it.  A warp's G = 32 / T teams take G consecutive rows, a team a
-// row.
+// past it.  A warp's G = 32 / T teams take G consecutive slots, a team a
+// slot: slot s walks row s, or with kPerm row perm[s] (the binned SpMM's
+// rows in bin order), whose entries are [bounds[s].x, bounds[s].y): the
+// plan's copy of indptr at perm[s], so that no load waits on another
+// before the entries'.
 //
 // The warp loads its main rows' entries together, coalesced, 128 at a time
-// into shared memory: by the offset where no hub row with entries lies
-// among its rows, else by a search over the teams' starts.  Each team walks
+// into shared memory: by one offset where the packed entries are the
+// stored ones from there (without kPerm: no hub row with entries lies among
+// the warp's rows; with kPerm: every team with entries starts at the same
+// offset from its packed start, as rows that follow each other in storage
+// do), else by a search over the teams' starts.  Each team walks
 // its row's entries from there in order, four rows of X in flight.  A
 // row's sum is taken one plane at a time (plane q: its entries [q V, (q +
 // 1) V)), each plane added to the row's total as it closes: colsort2's
@@ -62,11 +68,15 @@ inline bool grid_of(long long rows, int k, int cols, int team_shift, int block,
   return true;
 }
 
-// The walk over rows r < m.
-template <typename Store, typename Acc, int W, int C>
+// The walk over slots s < m (kPerm: m slots of perm and bounds, each row's
+// Y row its own, indptr not read; else rows r < m, perm and bounds not
+// read).
+template <typename Store, typename Acc, int W, int C, bool kPerm>
 __device__ __forceinline__ void walk(const int* __restrict__ indptr,
                                      const int* __restrict__ col,
                                      const Store* __restrict__ val,
+                                     const int* __restrict__ perm,
+                                     const int2* __restrict__ bounds,
                                      const Acc* __restrict__ x,
                                      Acc* __restrict__ y, int m, int k, int V,
                                      int thr, int team_shift) {
@@ -79,15 +89,23 @@ __device__ __forceinline__ void walk(const int* __restrict__ indptr,
   const int T = 1 << team_shift;
   const int team = lane >> team_shift, tl = lane & (T - 1);
   const int G = 32 >> team_shift;
-  const long long r =
+  const long long slot =
       (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) * G + team;
   const int c0 = ((static_cast<int>(blockIdx.y) << team_shift) + tl) * C;
   const bool mine = c0 < k;
   int start = 0, len = 0;
   bool main_row = false;
-  if (r < m) {
-    start = __ldg(indptr + r);
-    len = __ldg(indptr + r + 1) - start;
+  long long r = slot;
+  if (slot < m) {
+    if constexpr (kPerm) {
+      r = __ldg(perm + slot);
+      const int2 b = __ldg(bounds + slot);
+      start = b.x;
+      len = b.y - b.x;
+    } else {
+      start = __ldg(indptr + r);
+      len = __ldg(indptr + r + 1) - start;
+    }
     main_row = len <= thr;
   }
   // the main rows' entries, packed: team t's at [first, first + ls) of the
@@ -100,10 +118,20 @@ __device__ __forceinline__ void walk(const int* __restrict__ indptr,
   }
   const int first = incl - ls;
   const int total = __shfl_sync(kFull, incl, 31);
-  // no hub row with entries among the warp's rows: the packed entries are
-  // the stored ones from the first row's start
-  const bool gapless = !__any_sync(kFull, r < m && !main_row && len > 0);
-  const int s0 = __shfl_sync(kFull, start, 0);
+  // gapless: packed entry i is stored entry s0 + i
+  bool gapless;
+  int s0;
+  if constexpr (kPerm) {
+    // every team with entries at one offset from its packed start (a team
+    // without entries holds no packed entry)
+    const int d = start - first;
+    s0 = __reduce_min_sync(kFull, ls > 0 ? d : INT_MAX);
+    gapless = __all_sync(kFull, ls == 0 || d == s0);
+  } else {
+    // no hub row with entries among the warp's rows: the first row's start
+    gapless = !__any_sync(kFull, slot < m && !main_row && len > 0);
+    s0 = __shfl_sync(kFull, start, 0);
+  }
 
   Acc acc[C], sum[C];
 #pragma unroll

@@ -32,8 +32,9 @@ __global__ void routed_spmm_kernel(const int* __restrict__ indptr,
                                    const Acc* __restrict__ x,
                                    Acc* __restrict__ y, int m, int k, int thr,
                                    int team_shift) {
-  rail_spmm::walk<Store, Acc, W, C>(indptr, col, val, x, y, m, k,
-                                    rail_spmm::kNoPlanes, thr, team_shift);
+  rail_spmm::walk<Store, Acc, W, C, false>(indptr, col, val, nullptr, nullptr,
+                                           x, y, m, k, rail_spmm::kNoPlanes, thr,
+                                           team_shift);
 }
 
 template <typename Store, typename Acc>

@@ -61,9 +61,10 @@ _SIGNATURES = {
     # team_shift, block, stream
     "cusp_dia_spmm": ((_vp, _vp, _i32, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
                        _i32, _i32, _i32, _i32, _vp), _TYPED),
-    # indptr, col, val, perm, bins (host), nbins, X, Y, k, block, stream
-    "cusp_binned_spmm": ((_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32,
-                          _vp), _TYPED),
+    # col, val, walk rows, walk bounds, slots, X, Y, k, width, cols,
+    # team_shift, block, stream
+    "cusp_binned_spmm": ((_vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32,
+                          _i32, _i32, _vp), _TYPED),
     # row, col, val, nnz, X, Y, m, k, carry_row, carry_val, vpt, width, cols,
     # team_shift, block, stream
     "cusp_coo_spmm": ((_vp, _vp, _vp, _i64, _vp, _vp, _i32, _i32, _vp, _vp,

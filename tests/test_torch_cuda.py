@@ -490,16 +490,21 @@ def test_dia_spmm_rectangular_on_card(cuda_device, shape, offsets):
                                                (4, 100, 512), (0, 1, 256)])
 def test_binned_spmm_kernel_matches_plain_on_card(cuda_device, tpr, hub_cap,
                                                   block, k):
-    """hub_cap 1 makes every row of two or more entries a hub row."""
+    """The walk over the rows of at most spmm_cap entries in bin order,
+    then the colsort2 hub pair for the rows above it (the 4096- and
+    1500-entry rows, past the rails' threshold of 89); hub_cap 1 makes
+    every row of two or more entries a hub row."""
     A = from_scipy(_rails_matrix(), "csr", dtype=torch.float32, device=cuda_device)
     fn = build_binned(A, {"threads_per_row": tpr, "hub_cap": hub_cap,
                           "block_size": block})
     a = fn.planned_arrays
     X = _block(A.num_cols, k, cuda_device)
-    before = binned_spmm.launches
+    before = (binned_spmm.launches, colsort2_hub_spmm.launches)
     Y = fn(X)
     torch.cuda.synchronize()
-    assert binned_spmm.launches - before == 1
+    assert (binned_spmm.launches - before[0], colsort2_hub_spmm.launches - before[1]) \
+        == (1, 1)
+    assert a["hub"][0].numel() == fn.plan_stats["spmm_hub_rows"] > 0
     Yp = binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"], a["bins"],
                            X, A.num_rows)
     torch.testing.assert_close(Y, Yp, **TOL["rails"])
@@ -536,6 +541,74 @@ def _misaligned(X, offset):
 
 SPMM_KS = [3, 4, 5, 16, 33, 128, 130]
 PATHS = {"16-byte": 0, "8-byte": 2, "scalar": 1}   # offsets in f32 values
+
+
+@pytest.mark.parametrize("k", [3, 16])
+def test_binned_spmm_all_hub_rows_on_card(cuda_device, k):
+    """hub_cap 1 on rows of 2-3 entries (tests/test_pallas.py:489's matrix):
+    the walk has no slot and is not launched; the hub pair writes every
+    row."""
+    n = 400
+    S = sp.eye(n) + sp.diags(np.full(n - 1, 2.0), 1) + sp.diags(np.full(n - 1, 3.0), -1)
+    A = from_scipy(S.tocsr(), "csr", dtype=torch.float32, device=cuda_device)
+    fn = build_binned(A, {"hub_cap": 1})
+    a = fn.planned_arrays
+    X = _block(n, k, cuda_device)
+    launched = _rail_case(
+        fn, lambda X: binned_spmv_plain(a["indptr"], a["col"], a["val"], a["perm"],
+                                        a["bins"], X, n),
+        X, (binned_spmm, colsort2_hub_spmm))
+    assert launched == [0, 1] and fn.plan_stats["spmm_hub_rows"] == n
+
+
+def _sorted_rails(dtype, device):
+    """The rails matrix with each row's columns in ascending order (as the
+    routed plan keeps them), planned by binned and routed alike."""
+    S = _rails_matrix().sorted_indices()
+    return from_scipy(S, "csr", dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("k", SPMM_KS)
+def test_binned_spmm_equals_routed_spmm_on_card(cuda_device, k, path):
+    """On sorted columns the binned SpMM's Y equals the routed SpMM's bit
+    for bit at the same hub_cap (routed's default, which is binned's
+    spmm_cap at binned's default hub_cap, and 64), for
+    threads_per_row 0, 1 and 4 and X at three alignments: one walk, one
+    plane, each row's sum in entry order whatever the row order."""
+    A = _sorted_rails(torch.float32, cuda_device)
+    X = _misaligned(_block(A.num_cols, k, cuda_device), PATHS[path])
+    for cfg in ({}, {"hub_cap": 64, "block_size": 512}):
+        fr = build_routed(A, cfg)
+        cap = fr.plan_stats["hub_cap"]
+        Yr = fr(X)
+        for tpr in (0, 1, 4):
+            fb = build_binned(A, {**cfg, "hub_cap": cap, "threads_per_row": tpr})
+            assert fb.plan_stats["spmm_cap"] == cap
+            assert all(torch.equal(p, q) for p, q in
+                       zip(fb.planned_arrays["hub"], fr.planned_arrays["hub"]))
+            assert torch.equal(fb(X), Yr), (cap, tpr)
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("k", [5, 16])
+def test_binned_spmm_bins_and_routed_bits_other_storage_on_card(cuda_device, k,
+                                                                store):
+    """threads_per_row 0 (rows by length) and 1 (row order) give equal Y,
+    equal to the routed SpMM's bit for bit on sorted columns, in every
+    storage type, and within the plain version's tolerance."""
+    dtype = torch.float64 if store == "float64" else torch.float32
+    A = _sorted_rails(dtype, cuda_device)
+    cfg = {"hub_cap": 64}
+    if store == "bfloat16":
+        cfg["value_dtype"] = "bfloat16"
+    X = _block(A.num_cols, k, cuda_device, dtype)
+    Y0, Y1 = (build_binned(A, {**cfg, "threads_per_row": t})(X) for t in (0, 1))
+    assert Y0.dtype == dtype and torch.equal(Y0, Y1)
+    assert torch.equal(Y0, build_routed(A, cfg)(X))
+    ref = reference_spmv(A, X)
+    tol = 2e-2 if store == "bfloat16" else (1e-10 if store == "float64" else 1e-5)
+    assert np.linalg.norm(Y0.cpu().numpy() - ref) / np.linalg.norm(ref) < tol
 
 
 @pytest.mark.parametrize("path", list(PATHS))
