@@ -2,13 +2,30 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Eight main paths, each driven with every kernel's launch count set to 0
+Nine main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
             (1,000,000 unknowns), a via_dia planned operator, CG under a
             Monitor at rel-tol 1e-5 with at most 2000 iterations, then the
             true residual b - A x through the default CSR operator;
+  krylov    the rest of the Krylov family on the cg.cu path's A and b:
+            cr, bicg (A^T transposed on the card), bicgstab, cg_m and
+            bicgstab_m (shifts 0, 0.5, 2) through the via_dia plan, and
+            refine with its inner CG on the bf16 binned plan, at rel-tol
+            1e-5 with at most 2000 iterations (refine: 12 sweeps); gmres(50),
+            bicgstab with and without the diagonal preconditioner and bicg
+            through the CSR kernel on a non-symmetric 1M-row matrix
+            (tests/test_krylov.py's recipe, ~9M entries).  Each solve's
+            iterations, residuals (monitored, and true through the CSR
+            kernel), set-up and solve s, ms/iteration and launches; CR,
+            BiCGstab and BiCGstab-M, which f32 keeps from the bar here in
+            the JAX package too, are held to its reach (F32_JAX_REACH) and
+            run again in f64, held to the bar.  Then each solver's kernel
+            operator against its plain one at 100x100 and 10,000 rows, and
+            the six solvers with mesh= on a 4-entry mesh against their
+            unsharded solves and the JAX package's counts at
+            __graft_entry__.py's multichip input;
   amg       smoothed-aggregation AMG-CG, the JAX package's
             benchmarks/amg_endtoend.py in the port's idiom: calibrate() (the
             cost model's rates, the take probe's among them),
@@ -156,6 +173,7 @@ Phases:
                4096 tiles and 18 passes, and the two-point tile_take_ns
   cg           the cg.cu path; then a 100x100 solve through the kernel
                operator against one through the plain operator
+  krylov       the krylov path
   amg          the amg path
   autotune     the autotune path
   spmm         the spmm path, with the untuned default (binned) against
@@ -180,6 +198,7 @@ torch sees no CUDA device.  Its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1312,6 +1331,309 @@ def cg_phase(device, A):
         raise RuntimeError("cg: 100x100 kernel and plain solves disagree")
     return launches, b, its, rel
 
+
+# the krylov path: the shifts of __graft_entry__.py:220, the JAX package's
+# iteration counts at its multichip input (MULTICHIP_r05.json, printed by
+# __graft_entry__.py:177-236), and the kernels the path must launch
+KRYLOV_SIGMA = (0.0, 0.5, 2.0)
+JAX_MESH_COUNTS = {"bicg": 56, "gmres": 102, "cr": 56, "bicgstab": 43,
+                   "cg_m": 62, "bicgstab_m": 46}
+KRYLOV_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv")
+NONSYM_SEED = 5
+KRYLOV_PROFILE_ITS = 32              # iterations a profiled solve runs
+# f32 on the cg.cu system (A of condition ~4e5) keeps CR, BiCGstab and
+# BiCGstab-M from the bar in the JAX package too: {solver: (the JAX
+# package's last monitored relative residual, whether its x is finite)},
+# from tests/krylov_f32_reach.py on the CPU (PERF.md §7).  Each of these f32
+# solves keeps x of shape n, finite where the JAX package's is, and a
+# residual that stalls there (below 1) within STALL_SLACK of the JAX
+# package's; the same solves run again in f64, held to the bar
+F32_JAX_REACH = {"cr": (0.28302, True), "bicgstab": (float("nan"), False),
+                 "bicgstab_m": (float("nan"), False)}
+STALL_SLACK = 1.1
+# the f32 mesh= counts may differ from the JAX package's by the rounding of
+# torch's and XLA's sums: by 1, and bicgstab, whose f32 history on this input
+# is erratic, by 2 (tests/test_torch_krylov_mesh.py says why)
+MESH_JAX_SLACK = {"bicgstab": 2}
+
+
+def nonsym_csr(n, seed, device):
+    """tests/test_krylov.py:19-23's non-symmetric recipe at n rows: 8 seeded
+    uniform [0, 1) values a row at random columns, duplicates merged, plus
+    6 I (diagonally dominant on average)."""
+    import scipy.sparse as sp
+    from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
+    rng = np.random.RandomState(seed)
+    S = sp.csr_matrix((rng.rand(8 * n), (np.repeat(np.arange(n), 8),
+                                          rng.randint(0, n, 8 * n))), shape=(n, n))
+    S = (S + sp.diags(np.full(n, 6.0))).tocsr().astype(np.float32)
+    S.sort_indices()
+    return csr_matrix(S.indptr, S.indices, S.data, (n, n), device=device)
+
+
+def true_residual(apply, x, b, sigma=None):
+    """||b - A x|| / ||b|| through `apply`; for a block of shifted
+    solutions the largest of ||b - (A + s I) x_s|| / ||b||."""
+    from cusp_autotuned_tpu_torch.ops import blas
+    if sigma is None:
+        return float(blas.nrm2(b - apply(x)) / blas.nrm2(b))
+    return max(float(blas.nrm2(b - apply(xs) - s * xs) / blas.nrm2(b))
+               for xs, s in zip(x, sigma.tolist()))
+
+
+def oracle_residual(A, x, b, sigma=None):
+    """The same by the scipy oracle, in f64 on the host."""
+    from cusp_autotuned_tpu_torch.backend.reference import to_scipy
+    S = to_scipy(A).astype(np.float64)
+    bh, xh = b.double().cpu().numpy(), x.double().cpu().numpy()
+    if sigma is None:
+        return float(np.linalg.norm(bh - S @ xh) / np.linalg.norm(bh))
+    return max(float(np.linalg.norm(bh - S @ xs - s * xs) / np.linalg.norm(bh))
+               for xs, s in zip(xh, sigma.tolist()))
+
+
+def krylov_solves(ops, b, sigma, refine_cfg, inner):
+    """{label: (problem, call(limit, rtol) -> (x, monitor), shifted)}: the
+    krylov path's solves on `ops` (A and A^T planned on the DIA rail, N and
+    N^T on the CSR kernel, N's diagonal preconditioner M, and the container
+    A_csr that refine plans itself)."""
+    from cusp_autotuned_tpu_torch import solvers
+    from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
+    A, At, N, Nt, M, A_csr = ops
+
+    def mon(limit, rtol):
+        return Monitor(b, limit, rtol)
+    return {
+        "cr": ("poisson", lambda l, t: solvers.cr(A, b, monitor=mon(l, t)), False),
+        "bicg": ("poisson", lambda l, t: solvers.bicg(A, b, monitor=mon(l, t), At=At),
+                 False),
+        "bicgstab": ("poisson", lambda l, t: solvers.bicgstab(A, b, monitor=mon(l, t)),
+                     False),
+        "cg_m": ("poisson", lambda l, t: solvers.cg_m(A, b, sigma, monitor=mon(l, t)),
+                 True),
+        "bicgstab_m": ("poisson", lambda l, t: solvers.bicgstab_m(
+            A, b, sigma, monitor=mon(l, t)), True),
+        # refine: 12 outer sweeps at rel-tol t, inner CG to 1e-3 in at most
+        # l iterations (one sweep where t is 0, for the profile)
+        "refine": ("poisson", lambda l, t: solvers.refine(
+            A_csr, b, config=refine_cfg, inner_rtol=1e-3, inner=inner,
+            inner_limit=l, monitor=mon(12 if t else 1, t)), False),
+        "gmres(50)": ("nonsym", lambda l, t: solvers.gmres(
+            N, b, restart=50, monitor=mon(l, t)), False),
+        "bicgstab N": ("nonsym", lambda l, t: solvers.bicgstab(N, b, monitor=mon(l, t)),
+                       False),
+        "bicgstab N, M = diag": ("nonsym", lambda l, t: solvers.bicgstab(
+            N, b, M=M, monitor=mon(l, t)), False),
+        "bicg N": ("nonsym", lambda l, t: solvers.bicg(N, b, monitor=mon(l, t), At=Nt),
+                   False),
+    }
+
+
+def krylov_ops(A, N, dia_impl=None, csr_config=None):
+    """(A and A^T on the via_dia plan, N and N^T planned with csr_config
+    (the CSR kernel by default) and N's diagonal preconditioner, or None
+    where N is None, A) and the seconds each plan took (the transposes run
+    on the matrix's device)."""
+    from cusp_autotuned_tpu_torch import transpose
+    from cusp_autotuned_tpu_torch.operators import make_linear_operator, planned_operator
+    from cusp_autotuned_tpu_torch.ops.format_utils import extract_diagonal
+    setup = {}
+
+    def timed(key, build):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        setup[key] = time.perf_counter() - t0
+        return out
+    cfg = {"impl": "via_dia", **({"dia_impl": dia_impl} if dia_impl else {})}
+    ops = (timed("poisson", lambda: planned_operator(A, cfg)),
+           timed("poisson A^T", lambda: planned_operator(transpose(A), cfg)))
+    if N is None:
+        return ops + (None, None, None, A), setup
+    d = extract_diagonal(N)
+    return ops + (timed("nonsym", lambda: planned_operator(N, csr_config)),
+                  timed("nonsym N^T", lambda: planned_operator(transpose(N), csr_config)),
+                  make_linear_operator(lambda r: r / d, N.shape), A), setup
+
+
+def krylov_phase(device, A, b):
+    """The krylov path: the Krylov solvers and refine at full width on the
+    cg.cu path's A and b (F32_JAX_REACH's also in f64) and on a
+    non-symmetric 1M-row matrix, then each solver's kernel operator against
+    its plain one at 100x100 and 10,000 rows, and the six solvers with
+    mesh= against their unsharded solves.  Returns the path's launch
+    counts."""
+    from cusp_autotuned_tpu_torch import gallery, parallel, solvers
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
+
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    N = nonsym_csr(A.num_rows, NONSYM_SEED, device)
+    log(f"krylov: non-symmetric matrix (tests/test_krylov.py's recipe, seed "
+        f"{NONSYM_SEED}): {N.num_rows} rows, nnz {N.nnz}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    A64 = dataclasses.replace(A, val=A.val.double())
+    b64 = b.double()
+    sigma = torch.tensor(KRYLOV_SIGMA, dtype=b.dtype, device=device)
+    ops, setup = krylov_ops(A, N)
+    ops64, setup64 = krylov_ops(A64, None)
+    log("krylov: set-up s (the plans; A^T and N^T transposed on the card): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in setup.items())
+        + f"; f64: poisson {setup64['poisson']:.3f}")
+    inner_runs = []
+
+    def inner(A_lo, r, **kw):                   # refine's inner CG, recorded
+        x, m = solvers.cg(A_lo, r, **kw)
+        inner_runs.append((A_lo, m.iteration_count()))
+        return x, m
+    solves = krylov_solves(ops, b, sigma, {"impl": "binned"}, inner)
+    solves.update({f"{k} f64": ("poisson f64", call, shifted) for k, (_, call, shifted)
+                   in krylov_solves(ops64, b64, sigma.double(), {"impl": "binned"},
+                                    inner).items()
+                   if k in F32_JAX_REACH})
+    rhs = {"poisson": b, "nonsym": b, "poisson f64": b64}
+    check = {"poisson": planned_operator(A), "nonsym": ops[2],
+             "poisson f64": planned_operator(A64)}
+    for _, call, _ in solves.values():          # warm-up: cuBLAS, allocator
+        call(2, 0.0)
+
+    reset_counts()
+    rows = {}
+    for label, (problem, call, shifted) in solves.items():
+        inner_runs.clear()
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, mon = call(2000, 1e-5)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        used = {k: v - before[k] for k, v in read_counts().items() if v > before[k]}
+        its = mon.iteration_count()
+        rel = mon.residual_norm() / mon.b_norm
+        true = true_residual(check[problem], x, rhs[problem],
+                             sigma.to(x.dtype) if shifted else None)
+        inner_its = sum(n for _, n in inner_runs)
+        refine = label.startswith("refine")
+        walked = inner_its if refine else its
+        plan = {"bicg": "poisson A^T", "bicg N": "nonsym N^T"}.get(
+            label, problem.split()[0])
+        reach = F32_JAX_REACH.get(label)
+        rows[label] = (walked, solve_s, used)
+        route = ("the CSR kernel outside, bf16 binned inside" if refine else
+                 "via_dia" if problem.startswith("poisson") else "CSR kernel")
+        log(f"krylov: {label} on {problem} ({route}), rtol 1e-5, limit "
+            f"{12 if refine else 2000}: {its} iterations"
+            f"{f' ({inner_its} inner)' if refine else ''}, converged "
+            f"{mon.converged()}, relative residual {rel:.3e} (true {true:.3e}), "
+            + ("set-up in the solve (refine plans its operators)" if refine else
+               f"set-up {(setup64 if 'f64' in problem else setup)[plan]:.3f} s")
+            + f", solve {solve_s:.3f} s, {1e3 * solve_s / max(walked, 1):.4f} "
+            f"ms/iteration; launches {used}"
+            + ("" if reach is None else f"; the JAX package in f32: relative "
+               f"residual {reach[0]:.4e}, x finite {reach[1]}; held to the bar "
+               f"in f64 below"))
+        if x.shape[-1] != A.num_rows or (
+                (reach is None or reach[1]) and not torch.isfinite(x).all()):
+            raise RuntimeError(f"krylov: {label}: x is not finite or not of shape n")
+        if reach is None and not (np.isfinite(rel) and rel < 1e-2 and np.isfinite(true)):
+            raise RuntimeError(f"krylov: {label}: relative residual {rel} (true "
+                               f"{true}) is not finite and below 1e-2")
+        if reach is not None and reach[0] < 1 and not rel <= STALL_SLACK * reach[0]:
+            raise RuntimeError(f"krylov: {label}: relative residual {rel} above "
+                               f"{STALL_SLACK} times the JAX package's {reach[0]}")
+        kernel = ("binned_spmv" if refine else
+                  "dia_spmv" if problem.startswith("poisson") else "csr_spmv")
+        if used.get(kernel, 0) < walked:
+            raise RuntimeError(f"krylov: {label}: {kernel} launched "
+                               f"{used.get(kernel, 0)} times in {walked} iterations")
+        if refine:
+            plans = {(op.impl, op.arrays["val"].dtype) for op, _ in inner_runs}
+            if plans != {("binned", torch.bfloat16)}:
+                raise RuntimeError(f"krylov: refine's inner plans are {plans}")
+    launches = read_counts()
+    log(f"krylov: full-width solves in {time.perf_counter() - t_path:.1f} s; "
+        f"launches {launches}")
+
+    # an iteration's device time, kernels and launch calls (torch.profiler over
+    # a solve of KRYLOV_PROFILE_ITS iterations at rtol 0; refine: one sweep of
+    # that many inner iterations), against its host time in the solve above
+    for label, (problem, call, _) in solves.items():
+        walked, solve_s, used = rows[label]
+        dev, kern, host = launch_calls(lambda: call(KRYLOV_PROFILE_ITS, 0.0), 1)
+        wall = 1e3 * solve_s / max(walked, 1)
+        per = KRYLOV_PROFILE_ITS
+        log(f"krylov: {label}: {wall:.4f} ms/iteration, {dev / per:.4f} ms device "
+            f"({100 * dev / per / wall:.1f} % busy), {kern / per:.1f} kernels and "
+            f"{host / per:.1f} launch calls an iteration; wrapper launches "
+            + ", ".join(f"{k} {v / max(walked, 1):.2f}" for k, v in used.items())
+            + " an iteration")
+
+    # kernel operator against plain operator, and x against the scipy oracle,
+    # on problems that converge: poisson5pt 100x100 and 10,000 rows of N's
+    # recipe (CR in f64: at 100x100 it stagnates in f32 too; refine to
+    # rel-tol 1e-4: its f32 residual b - A x floors at ~5.4e-5 there)
+    P = gallery.poisson5pt(100, 100, format="csr", device=device)
+    P64 = dataclasses.replace(P, val=P.val.double())
+    Ns = nonsym_csr(10_000, NONSYM_SEED, device)
+    bs = torch.as_tensor(np.random.RandomState(1).rand(P.num_rows),
+                         dtype=torch.float32, device=device)
+    found = {}
+    for kind, dia_impl, csr_config, refine_cfg in (
+            ("kernel", "cuda", None, {"impl": "binned"}),
+            ("plain", "slices", {"impl": "segsum"},
+             {"impl": "via_dia", "dia_impl": "slices"})):
+        small = krylov_solves(krylov_ops(P, Ns, dia_impl, csr_config)[0], bs,
+                              sigma, refine_cfg, solvers.cg)
+        small.update({k: (problem, call, shifted) for k, (problem, call, shifted) in
+                      krylov_solves(krylov_ops(P64, None, dia_impl)[0],
+                                    bs.double(), sigma.double(), refine_cfg,
+                                    solvers.cg).items()
+                      if k == "cr"})
+        for label, (problem, call, shifted) in small.items():
+            x, mon = call(2000, 1e-4 if label == "refine" else 1e-5)
+            res = oracle_residual(P if problem == "poisson" else Ns, x,
+                                  bs.to(x.dtype), sigma if shifted else None)
+            found.setdefault(label, {})[kind] = (mon.iteration_count(),
+                                                 mon.converged(), res)
+    for label, out in found.items():
+        (ik, ck, rk), (ip, cp, rp) = out["kernel"], out["plain"]
+        log(f"krylov: {label}{' (f64)' if label == 'cr' else ''} at "
+            f"100x100 / 10,000 rows (iterations, converged, oracle residual): "
+            f"kernel {out['kernel']}, plain {out['plain']}")
+        if not (ck and cp and abs(ik - ip) <= 2 and rk < 1e-2 and rp < 1e-2):
+            raise RuntimeError(f"krylov: {label}: the kernel and plain solves disagree")
+
+    # mesh=: the six solvers at __graft_entry__.py's multichip input on a mesh
+    # of MESH_ENTRIES entries of the one card, against their unsharded solves
+    mesh = parallel.make_row_mesh([device] * MESH_ENTRIES)
+    G = gallery.poisson5pt(16, 64, format="csr", device=device)
+    bg = torch.ones(G.num_rows, device=device)
+    mesh_calls = {
+        "bicg": lambda **m: solvers.bicg(G, bg, **m),
+        "gmres": lambda **m: solvers.gmres(G, bg, restart=20, **m),
+        "cr": lambda **m: solvers.cr(G, bg, **m),
+        "bicgstab": lambda **m: solvers.bicgstab(G, bg, **m),
+        "cg_m": lambda **m: solvers.cg_m(G, bg, sigma, monitor=Monitor(bg, 80, 1e-6), **m),
+        "bicgstab_m": lambda **m: solvers.bicgstab_m(G, bg, sigma,
+                                                     monitor=Monitor(bg, 80, 1e-6), **m),
+    }
+    for name, call in mesh_calls.items():
+        x1, m1 = call()
+        xm, mm = call(mesh=mesh)
+        log(f"krylov: {name}(mesh=) on poisson5pt(16, 64) f32, b = 1: "
+            f"{mm.iteration_count()} iterations, unsharded {m1.iteration_count()} "
+            f"(the JAX package on the CPU: {JAX_MESH_COUNTS[name]}), converged "
+            f"{mm.converged()}, x against the unsharded {rel_diff(xm, x1):.2e}")
+        if mm.iteration_count() != m1.iteration_count() or not mm.converged() \
+                or not torch.isfinite(xm).all():
+            raise RuntimeError(f"krylov: {name}(mesh=) differs from the unsharded solve")
+        if abs(mm.iteration_count() - JAX_MESH_COUNTS[name]) > MESH_JAX_SLACK.get(name, 1):
+            raise RuntimeError(f"krylov: {name}(mesh=) takes {mm.iteration_count()} "
+                               f"iterations, the JAX package {JAX_MESH_COUNTS[name]}")
+    log(f"krylov: path in {time.perf_counter() - t_path:.1f} s")
+    return launches
 
 def check_statuses(where, results, vector_only=()):
     """Raise unless every result is Ok or a refused conversion, or, for an
@@ -2447,6 +2769,7 @@ def main():
 
     cg_launches, b, viadia_its, viadia_rel = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
+    krylov_launches = krylov_phase(device, matrices["poisson5pt 1000x1000 f32"], b)
     amg_launches, amg_its, M, b_amg = amg_phase(device)
     mesh_launches = multidevice_phase(
         device, matrices["poisson5pt 1000x1000 f32"], b, viadia_its, viadia_rel,
@@ -2457,12 +2780,14 @@ def main():
     del matrices
     suite_launches = suite_phase(device)
     bench_launches = bench_path(device, BENCH_BUDGET_S)
-    log(f"launches: cg.cu path {cg_launches}; amg path {amg_launches}; "
+    log(f"launches: cg.cu path {cg_launches}; krylov path {krylov_launches}; "
+        f"amg path {amg_launches}; "
         f"multidevice path {mesh_launches}; autotune path {tuned_launches}; spmm "
         f"path {spmm_launches}; suite path {suite_launches}; probes path "
         f"{probe_launches}; bench path {bench_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
+        [k for k in KRYLOV_KERNELS if krylov_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
         [k for k in SUITE_KERNELS if suite_launches[k] < 1] + \
@@ -2521,8 +2846,9 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": sum(path[name] for path in (
-                cg_launches, amg_launches, mesh_launches, tuned_launches,
-                spmm_launches, suite_launches, probe_launches, bench_launches)),
+                cg_launches, krylov_launches, amg_launches, mesh_launches,
+                tuned_launches, spmm_launches, suite_launches, probe_launches,
+                bench_launches)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

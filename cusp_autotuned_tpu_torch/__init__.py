@@ -10,10 +10,10 @@ under `csrc/`, built on first use (kernels/_build.py); beside each sits a
 plain PyTorch version, which the wrapper takes for CPU tensors.
 
 Ported so far (the cg.cu main path, the autotuner, the block multiply, the
-scattered rails and smoothed-aggregation AMG):
+scattered rails, smoothed-aggregation AMG and the Krylov family):
   formats/   COO, CSR, DIA, ELL, ELLR, HYB, the dense Array2d
   ops/       convert, multiply (vectors and dense blocks, with the autotune
-             hook), BLAS-1 for CG
+             hook), transpose, BLAS-1 for the Krylov solvers
   kernels/   DIA, CSR, row-binned CSR and nnz-balanced COO SpMV kernels;
              DIA, row-binned and COO SpMM kernels for dense blocks (n, k);
              the variant registry and the tuning spaces
@@ -26,7 +26,8 @@ scattered rails and smoothed-aggregation AMG):
   native/    the host aggregator, built with g++ at first use
   gallery/   stencil generator, poisson5pt, poisson9pt, random, the fork's
              diagonal generators
-  solvers/   Monitor, cg
+  solvers/   Monitor, cg, cr, bicg, bicgstab, gmres, cg_m, bicgstab_m,
+             refine and mixed_precision_cg
   eigen/     lobpcg, lanczos, arnoldi, gram_schmidt, spectral radius
   backend/   scipy oracle
   operators  Identity/Function/Planned operators, the factored and
@@ -45,8 +46,9 @@ from cusp_autotuned_tpu_torch import (
 )
 from cusp_autotuned_tpu_torch.operators import (
     IdentityOperator, FunctionOperator, PlannedOperator, planned_operator,
-    as_operator,
+    as_operator, identity_operator, make_linear_operator,
 )
 from cusp_autotuned_tpu_torch.ops.convert import convert
 from cusp_autotuned_tpu_torch.ops.multiply import multiply
+from cusp_autotuned_tpu_torch.ops.transpose import transpose
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor

@@ -205,6 +205,32 @@ def planned_operator(A, config=None):
                             config=tuple(sorted(cfg.items())))
 
 
+def identity_operator(n: int = 0, dtype=None) -> IdentityOperator:
+    """The n x n identity (cusp::identity_operator); dtype is accepted for
+    the reference's signature."""
+    return IdentityOperator(shape=(n, n))
+
+
+def make_linear_operator(fn: Callable, shape=(0, 0)) -> FunctionOperator:
+    """y = fn(x) as an operator (cusp::linear_operator over a functor)."""
+    return FunctionOperator(fn=fn, shape=tuple(shape))
+
+
+def solve_operator(A):
+    """The operator a solver applies for A.  A sparse container on a CUDA
+    device is planned once with its format's default configuration, so
+    every product of the solve runs a hand kernel (the plain path only
+    where default_config says the kernels do not take the values: complex
+    ones); with autotuning enabled it stays a container, and multiply's
+    hook runs the tuner's pick.  On the CPU, and for an operator, A is
+    returned as it is."""
+    from cusp_autotuned_tpu_torch import autotune, formats as F
+    if F.is_sparse(A) and A.device.type == "cuda" and not (
+            autotune.is_enabled() and A.format in autotune.TUNABLE_FORMATS):
+        return planned_operator(A)
+    return A
+
+
 def as_operator(M):
     """Normalise None / container / callable to an operator."""
     if M is None:

@@ -1,4 +1,6 @@
-"""Verbs (counterpart of cusp_autotuned_tpu/ops; convert, multiply and the
-BLAS-1 verbs that CG uses are ported so far)."""
+"""Verbs (counterpart of cusp_autotuned_tpu/ops; convert, multiply,
+transpose and the BLAS-1 verbs that the Krylov solvers use are ported so
+far)."""
 
 from cusp_autotuned_tpu_torch.ops import blas
+from cusp_autotuned_tpu_torch.ops.transpose import transpose

@@ -41,9 +41,12 @@ class MonitorState:
         return torch.logical_and(torch.logical_not(self.converged()),
                                  self.k < self.iteration_limit)
 
-    def record_(self, r_norm, active) -> None:
+    def record_(self, r_norm, active=None) -> None:
         """Append one residual norm, in place, where the device flag
-        `active` is set; a stopped solve records nothing."""
+        `active` is set (always without one); a stopped solve records
+        nothing."""
+        if active is None:
+            active = torch.ones((), dtype=torch.bool, device=self.k.device)
         self.k.add_(active.to(self.k.dtype))
         self.r_norm.copy_(torch.where(active, r_norm, self.r_norm))
         self.residuals.index_copy_(0, self.k.view(1),

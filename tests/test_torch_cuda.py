@@ -19,7 +19,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from cusp_autotuned_tpu_torch import eigen, gallery, solvers
+from cusp_autotuned_tpu_torch import eigen, gallery, solvers, transpose
 from cusp_autotuned_tpu_torch.autotune import ResultStatus, Tuner, calibrate
 from cusp_autotuned_tpu_torch.backend.reference import from_scipy, reference_spmv
 from cusp_autotuned_tpu_torch.kernels import build_spmv, default_config
@@ -179,6 +179,148 @@ def test_cg_kernel_operator_matches_plain_on_card(cuda_device):
     assert abs(mk.iteration_count() - mp.iteration_count()) <= 2
     assert nk >= mk.iteration_count() and np_ == 0
     torch.testing.assert_close(xk, xp, rtol=1e-3, atol=1e-3 * float(xp.abs().max()))
+
+
+# -- the Krylov family on the card: the kernel operator against the plain one
+
+SIGMA = [0.0, 0.5, 2.0]
+KRYLOV = {
+    "cr": lambda A, At, b, mon: solvers.cr(A, b, monitor=mon),
+    "bicg": lambda A, At, b, mon: solvers.bicg(A, b, At=At, monitor=mon),
+    "bicgstab": lambda A, At, b, mon: solvers.bicgstab(A, b, monitor=mon),
+    "gmres": lambda A, At, b, mon: solvers.gmres(A, b, restart=30, monitor=mon),
+    "cg_m": lambda A, At, b, mon: solvers.cg_m(A, b, SIGMA, monitor=mon),
+    "bicgstab_m": lambda A, At, b, mon: solvers.bicgstab_m(A, b, SIGMA, monitor=mon),
+}
+
+
+def _nonsym(n, seed=5):
+    """tests/test_krylov.py's non-symmetric recipe at n rows: 8 seeded
+    uniform [0, 1) values a row at random columns plus 6 I."""
+    rng = np.random.RandomState(seed)
+    S = sp.csr_matrix((rng.rand(8 * n), (np.repeat(np.arange(n), 8),
+                                          rng.randint(0, n, 8 * n))), shape=(n, n))
+    return (S + sp.diags(np.full(n, 6.0))).tocsr()
+
+
+@pytest.mark.parametrize("name", sorted(KRYLOV))
+def test_krylov_dia_kernel_matches_plain_on_card(cuda_device, name):
+    """Each solver on poisson5pt 100x100 through the via_dia plan with the
+    DIA kernel and with the plain slices: both converge within 2 iterations
+    of each other, the kernel solve launched dia_spmv at least once an
+    iteration and the plain one never.  CR runs in f64: in f32 its periodic
+    residual replacement stalls it at this size (PERF.md §7)."""
+    dtype = torch.float64 if name == "cr" else torch.float32
+    A = gallery.poisson5pt(100, 100, format="csr", dtype=dtype, device=cuda_device)
+    b = torch.as_tensor(np.random.RandomState(1).rand(A.num_rows), dtype=dtype,
+                        device=cuda_device)
+    out = {}
+    for dia_impl in ("cuda", "slices"):
+        cfg = {"impl": "via_dia", "dia_impl": dia_impl}
+        op, op_t = planned_operator(A, cfg), planned_operator(transpose(A), cfg)
+        before = dia_spmv.launches
+        x, mon = KRYLOV[name](op, op_t, b, Monitor(b, 2000, 1e-5))
+        out[dia_impl] = (x, mon, dia_spmv.launches - before)
+    (xk, mk, nk), (xp, mp, np_) = out["cuda"], out["slices"]
+    assert mk.converged() and mp.converged()
+    assert abs(mk.iteration_count() - mp.iteration_count()) <= 2
+    assert nk >= mk.iteration_count() and np_ == 0
+    assert xk.device.type == "cuda" and torch.isfinite(xk).all()
+    torch.testing.assert_close(xk, xp, rtol=1e-3, atol=1e-3 * float(xp.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["bicg", "bicgstab", "gmres", "bicgstab_m"])
+def test_krylov_on_card_container_runs_csr_kernel(cuda_device, name):
+    """A CSR container on the card is planned by the solver (the CSR kernel;
+    bicg also transposes it on the card and plans A^T), against the plain
+    CSR plan: both converge within 2 iterations of each other to the
+    oracle."""
+    S = _nonsym(10_000).astype(np.float32)
+    A = from_scipy(S, "csr", device=cuda_device)
+    b = torch.as_tensor(np.random.RandomState(1).rand(A.num_rows),
+                        dtype=torch.float32, device=cuda_device)
+    before = csr_spmv.launches
+    xk, mk = KRYLOV[name](A, None, b, Monitor(b, 2000, 1e-5))
+    nk = csr_spmv.launches - before
+    plain = {"impl": "segsum"}
+    xp, mp = KRYLOV[name](planned_operator(A, plain),
+                          planned_operator(transpose(A), plain), b,
+                          Monitor(b, 2000, 1e-5))
+    assert mk.converged() and mp.converged()
+    assert abs(mk.iteration_count() - mp.iteration_count()) <= 2
+    assert nk >= mk.iteration_count() and csr_spmv.launches - before == nk
+    bh = b.cpu().numpy()
+    for x in xk.reshape(-1, S.shape[0])[:1]:        # the unshifted system
+        r = bh - S @ x.cpu().numpy()
+        assert np.linalg.norm(r) / np.linalg.norm(bh) < 1e-4
+
+
+@pytest.mark.parametrize("fmt", ["csr", "dia"])
+def test_transpose_on_card_equals_cpu(cuda_device, fmt):
+    S = _nonsym(3000).astype(np.float32) if fmt == "csr" else \
+        sp.diags([np.arange(1.0, 2999.0), np.ones(3000), np.arange(2.0, 3001.0)],
+                 [-2, 0, 1], shape=(3000, 3000)).astype(np.float32)
+    A = from_scipy(S, fmt, device=cuda_device)
+    At = transpose(A)
+    assert At.format == fmt and At.device.type == "cuda"
+    want = transpose(A.to("cpu")).to_scipy().toarray()
+    np.testing.assert_array_equal(At.to_scipy().toarray(), want)
+    np.testing.assert_array_equal(want, S.T.toarray())
+
+
+@pytest.mark.parametrize("name", ["bicg", "bicgstab", "gmres"])
+def test_krylov_on_card_plans_a_sparse_preconditioner(cuda_device, name):
+    """A CSR container given as M (the Jacobi inverse of tests/test_krylov.py's
+    non-symmetric recipe) is planned like A: every application of M, and
+    bicg's M^T, which the solver transposes on the card, launches the CSR
+    kernel.  bicg and bicgstab apply A twice and M twice an iteration,
+    gmres A and M once.  The solve agrees with the same solve through M as
+    a function."""
+    S = _nonsym(10_000).astype(np.float32)
+    A = from_scipy(S, "csr", device=cuda_device)
+    Mi = sp.diags(1.0 / S.diagonal()).astype(np.float32).tocsr()
+    M = from_scipy(Mi, "csr", device=cuda_device)
+    b = torch.as_tensor(np.random.RandomState(1).rand(A.num_rows),
+                        dtype=torch.float32, device=cuda_device)
+    call = {"bicg": solvers.bicg, "bicgstab": solvers.bicgstab,
+            "gmres": functools.partial(solvers.gmres, restart=30)}[name]
+    before = csr_spmv.launches
+    x, mon = call(A, b, M=M, monitor=Monitor(b, 2000, 1e-5))
+    used = csr_spmv.launches - before
+    per = 4 if name in ("bicg", "bicgstab") else 2
+    assert mon.converged() and used >= per * mon.iteration_count(), (
+        used, mon.iteration_count())
+    d = torch.as_tensor(S.diagonal(), device=cuda_device)
+    extra = {"Mt": lambda r: r / d} if name == "bicg" else {}
+    xf, monf = call(A, b, M=lambda r: r / d, monitor=Monitor(b, 2000, 1e-5), **extra)
+    assert abs(mon.iteration_count() - monf.iteration_count()) <= 1
+    torch.testing.assert_close(x, xf, rtol=1e-4, atol=1e-4 * float(xf.abs().max()))
+
+
+def test_refine_runs_bf16_binned_kernel_on_card(cuda_device):
+    """refine's inner plan stores bf16 values and launches the binned
+    kernel; on a matrix whose values bf16 rounds (tests/test_mixed.py's
+    _scatter recipe, made square, symmetric and diagonally dominant) it
+    still reaches rtol 1e-6 in at most 6 outer sweeps."""
+    R = sp.random(600, 600, density=0.01, random_state=1, format="csr",
+                  dtype=np.float32)
+    S = (R + R.T + sp.diags(np.abs(R + R.T).sum(axis=1).A1 + 1.0)).tocsr()
+    A = from_scipy(S.astype(np.float32), "csr", device=cuda_device)
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal(600),
+                        dtype=A.dtype, device=cuda_device)
+    plans = []
+
+    def inner(A_lo, r, **kw):
+        plans.append((A_lo.impl, A_lo.arrays["val"].dtype, r.dtype))
+        return solvers.cg(A_lo, r, **kw)
+    before = binned_spmv.launches
+    x, mon = solvers.refine(A, b, inner=inner, config={"impl": "binned"},
+                            monitor=Monitor(b, 12, 1e-6))
+    assert mon.converged() and mon.iteration_count() <= 6, mon.residuals
+    assert set(plans) == {("binned", torch.bfloat16, torch.float32)}
+    assert binned_spmv.launches - before >= len(plans)
+    r = b.cpu().numpy() - S.astype(np.float64) @ x.cpu().double().numpy()
+    assert np.linalg.norm(r) <= 1.01 * 1e-6 * np.linalg.norm(b.cpu().numpy())
 
 
 def _rails_matrix(seed=2):

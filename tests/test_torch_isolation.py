@@ -35,7 +35,9 @@ SLICE_MODULES = (
     "parallel.shard_map_spmv", "parallel.sharded_plans",
     "benchmarks", "benchmarks.harness", "benchmarks.bytes_per_spmv",
     "benchmarks.dia_probe", "benchmarks.dia_spmm_probe", "benchmarks.routed_probe",
-    "utils.profiling", "bench",
+    "utils.profiling", "bench", "ops.transpose", "solvers.cr",
+    "solvers.bicgstab", "solvers.bicg", "solvers.gmres", "solvers.cg_m",
+    "solvers.bicgstab_m", "solvers.mixed",
 )
 # the JAX side: JAX itself, the JAX package, and the JAX repository's
 # bench.py and benchmarks/ folder
