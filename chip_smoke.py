@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Nine main paths, each driven with every kernel's launch count set to 0
+Ten main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
@@ -26,6 +26,23 @@ just before it and read just after:
             the six solvers with mesh= on a 4-entry mesh against their
             unsharded solves and the JAX package's counts at
             __graft_entry__.py's multichip input;
+  graph     the graph slice on the cg.cu path's A and b: BFS levels (each
+            level one CSR-kernel SpMV of the pattern) and predecessors from
+            vertex 0, connected_components (and on a block-diagonal pair of
+            grids), MIS(1), MIS(2) and vertex_coloring checked by plain
+            SpMVs, hilbert_curve of the grid's coordinates into 4 parts;
+            symmetric_rcm of A under a seeded random symmetric permutation
+            (the bandwidth before and after; rcm_dia refused by the DIA fill
+            guard there), CG through rcm_dia (dia_spmv) on a scrambled 1M-row
+            strip against via_dia on the unscrambled one; AMG-CG with
+            smoothed_aggregation(A, aggregator='mis', smoother=
+            'gauss_seidel' or 'sor', spmv_config={}) against plain CG, and
+            the 150x150 f64 MIS/Gauss-Seidel solve held to the JAX
+            package's count; CG with bridson_ainv and scaled_bridson_ainv
+            on the cg.cu system and BiCGstab with nonsym_bridson_ainv on the
+            krylov path's non-symmetric 1M-row matrix, each against its
+            solve without M; then each algorithm on a planned operator
+            against the plain path at 100x100 and 10,000 rows;
   amg       smoothed-aggregation AMG-CG, the JAX package's
             benchmarks/amg_endtoend.py in the port's idiom: calibrate() (the
             cost model's rates, the take probe's among them),
@@ -174,6 +191,7 @@ Phases:
   cg           the cg.cu path; then a 100x100 solve through the kernel
                operator against one through the plain operator
   krylov       the krylov path
+  graph        the graph path
   amg          the amg path
   autotune     the autotune path
   spmm         the spmm path, with the untuned default (binned) against
@@ -1635,6 +1653,383 @@ def krylov_phase(device, A, b):
     log(f"krylov: path in {time.perf_counter() - t_path:.1f} s")
     return launches
 
+# the graph path: the JAX package's AMG-CG count with the MIS aggregation
+# and the Gauss-Seidel smoother at 150x150 f64 (amg_phase's b and rel-tol
+# 1e-10), taken on the CPU with smoothed_aggregation(A, aggregator='mis',
+# smoother='gauss_seidel'); the kernels the path must launch; the seed of
+# its random symmetric permutations; and the shifted strip that rcm_dia
+# serves (RCM of a 2-D grid leaves ~2n + 1 distinct diagonals, which the
+# DIA fill guard refuses; of a strip four vertices wide, nine)
+JAX_MIS_GS_150_ITERATIONS = 22
+GRAPH_KERNELS = ("dia_spmv", "csr_spmv")
+SCRAMBLE_SEED = 11
+STRIP_WIDTH, STRIP_SHIFT = 4, 0.5
+GRAPH_RTOL = 1e-5                    # GS, SOR and AINV applies, f32
+
+
+def scrambled(S, seed):
+    """(P S P^T for a seeded random permutation p, p), scipy CSR."""
+    p = np.random.RandomState(seed).permutation(S.shape[0])
+    return S.tocsr()[p][:, p].tocsr(), p
+
+
+def bandwidth(S):
+    S = S.tocoo()
+    return int(np.abs(S.row.astype(np.int64) - S.col).max())
+
+
+def shifted_strip(rows, device):
+    """poisson5pt(STRIP_WIDTH, rows / STRIP_WIDTH) + STRIP_SHIFT I in f32,
+    and the same scrambled by SCRAMBLE_SEED: (strip, scrambled, p)."""
+    import scipy.sparse as sp
+    from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy, to_scipy
+    S = to_scipy(gallery.poisson5pt(STRIP_WIDTH, rows // STRIP_WIDTH, format="csr",
+                                    device="cpu"))
+    S = (S + STRIP_SHIFT * sp.eye(S.shape[0], dtype=np.float32)).tocsr()
+    Ss, p = scrambled(S, SCRAMBLE_SEED)
+    return (from_scipy(S, "csr", dtype=torch.float32, device=device),
+            from_scipy(Ss, "csr", dtype=torch.float32, device=device), p)
+
+
+def unit_pattern(G):
+    """G's off-diagonal pattern with unit values, planned on the plain
+    path (segsum)."""
+    from cusp_autotuned_tpu_torch.graph.traversal import strip_diagonal
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    C = strip_diagonal(G)
+    C = dataclasses.replace(C, val=(C.row < C.num_rows).to(torch.float32))
+    return planned_operator(C, {"impl": "segsum"}), C
+
+
+def check_mis(name, G, stencil, k):
+    """The stencil is an MIS(k) of G: no two selected vertices within k
+    hops, every vertex within k hops of one; by plain SpMVs on the card."""
+    op, _ = unit_pattern(G)
+    s = stencil.to(torch.float32)
+    y1 = op(s)
+    if k == 1:
+        clash, cover = s * y1, s + y1
+    else:
+        y2 = op(y1)                      # holds deg(v) s[v], the walks v-u-v
+        deg = op(torch.ones_like(s))
+        clash, cover = s * (y1 + y2 - deg * s), s + y1 + y2
+    if float(clash.sum()) != 0 or not bool((cover > 0).all()):
+        raise RuntimeError(f"graph: {name}: the MIS({k}) stencil is not "
+                           f"independent and maximal")
+
+
+def check_coloring(name, G, colors):
+    _, C = unit_pattern(G)
+    row, col = C.row[:C.nnz].long(), C.col[:C.nnz].long()
+    if bool((colors[row] == colors[col]).any()) or bool((colors < 0).any()):
+        raise RuntimeError(f"graph: {name}: an edge joins two vertices of one colour")
+
+
+def graph_parts(device, A, b, clock):
+    """The graph path's runs (traversal, reordering, AMG-CG with MIS and
+    Gauss-Seidel or SOR, AINV); returns nothing, raises on a failed check."""
+    import scipy.sparse as sp
+    from cusp_autotuned_tpu_torch import gallery, graph, precond, solvers
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy, to_scipy
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    from cusp_autotuned_tpu_torch.ops import blas
+    from cusp_autotuned_tpu_torch.precond import smoothed_aggregation
+    from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
+    from cusp_autotuned_tpu_torch.utils.exceptions import FormatConversionException
+
+    n = A.num_rows
+    nx = 1000
+    v = torch.arange(n, device=device)
+
+    # traversal on the cg.cu A
+    levels = graph.breadth_first_search(A, 0)
+    if not torch.equal(levels, (v // nx + v % nx).to(torch.int32)):
+        raise RuntimeError("graph: the BFS levels are not the grid's hop distances")
+    pred = graph.breadth_first_search(A, 0, mark_levels=False).long()
+    step = v - pred
+    up = (levels[pred] == levels - 1) & (((step == 1) & (v % nx != 0)) | (step == nx))
+    if int(pred[0]) != 0 or not bool(up[1:].all()):
+        raise RuntimeError("graph: a BFS predecessor is no neighbour one level up")
+    count, _ = graph.connected_components(A)
+    half = to_scipy(gallery.poisson5pt(nx, n // nx // 2, format="csr", device="cpu"))
+    pair = from_scipy(sp.block_diag([half, half]).tocsr(), "csr", device=device)
+    count2, labels2 = graph.connected_components(pair)
+    split = (labels2[: n // 2] == labels2[0]).all() & (labels2[n // 2:] == labels2[-1]).all()
+    if count != 1 or count2 != 2 or not bool(split) or int(labels2[0]) == int(labels2[-1]):
+        raise RuntimeError(f"graph: components {count} and {count2}, not 1 and 2")
+    log(f"graph: poisson5pt 1000x1000 f32: BFS levels from vertex 0 (the corner "
+        f"at level {int(levels[-1])}, {int(levels.max()) + 1} levels, each a "
+        f"CSR-kernel SpMV of the pattern), predecessors each a neighbour one level up; connected_components "
+        f"{count}, {count2} on a block-diagonal pair of poisson5pt(1000, 500)")
+    clock("BFS and components")
+    for k in (1, 2):
+        found, stencil = graph.maximal_independent_set(A, k=k)
+        check_mis(f"poisson5pt 1000x1000 MIS({k})", A, stencil, k)
+        log(f"graph: MIS({k}): {found} vertices, independent and maximal")
+    ncolors, colors = graph.vertex_coloring(A)
+    check_coloring("poisson5pt 1000x1000", A, colors)
+    coord = torch.stack([v % nx, v // nx], 1).to(torch.float64)
+    parts = graph.hilbert_curve(coord, 4)
+    sizes = torch.bincount(parts.long(), minlength=4)
+    if parts.device != coord.device or int(sizes.max() - sizes.min()) > 1:
+        raise RuntimeError(f"graph: hilbert_curve part sizes {sizes.tolist()}")
+    log(f"graph: vertex_coloring: {ncolors} colours, no edge inside one; "
+        f"hilbert_curve of the grid's coordinates into 4 parts of "
+        f"{sizes.tolist()} vertices")
+    clock("MIS, colouring and Hilbert")
+
+    # reordering: RCM of the scrambled cg.cu A, and rcm_dia where it serves
+    S = to_scipy(A).tocsr()
+    Ss, _ = scrambled(S, SCRAMBLE_SEED)
+    As = from_scipy(Ss, "csr", device=device)
+    t0 = time.perf_counter()
+    P = graph.symmetric_rcm(As)
+    rcm_s = time.perf_counter() - t0
+    perm = P.perm.cpu().numpy()
+    R = Ss[perm][:, perm].tocoo()
+    offsets = np.unique(R.col.astype(np.int64) - R.row)
+    try:
+        planned_operator(As, {"impl": "rcm_dia"})
+    except FormatConversionException as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("graph: rcm_dia planned the reordered grid's "
+                           f"{offsets.size} diagonals past the DIA fill guard")
+    log(f"graph: symmetric_rcm of poisson5pt 1000x1000 under a random symmetric "
+        f"permutation (seed {SCRAMBLE_SEED}) in {rcm_s:.3f} s: bandwidth "
+        f"{bandwidth(Ss)} before, {bandwidth(R)} after ({bandwidth(S)} unscrambled); "
+        f"the reordered grid has {offsets.size} distinct diagonals, and rcm_dia "
+        f"is refused ({refused})")
+    del As, R
+    strip, strip_s, p = shifted_strip(n, device)
+    t0 = time.perf_counter()
+    rcm_op = planned_operator(strip_s, {"impl": "rcm_dia"})
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    bs = b[torch.as_tensor(p, device=device)]
+    _, mon_rcm, rcm_solve = solve(rcm_op, bs)
+    _, mon_dia, dia_solve = solve(planned_operator(strip, {"impl": "via_dia"}), b)
+    its_rcm, its_dia = mon_rcm.iteration_count(), mon_dia.iteration_count()
+    log(f"graph: rcm_dia on poisson5pt({STRIP_WIDTH}, {n // STRIP_WIDTH}) + "
+        f"{STRIP_SHIFT} I f32 under the same permutation (bandwidth "
+        f"{bandwidth(to_scipy(strip_s))}): planned in {plan_s:.3f} s ({rcm_op.impl}); "
+        f"CG rtol 1e-5 through it {its_rcm} iterations ({rcm_solve:.3f} s), "
+        f"via_dia on the unscrambled strip {its_dia} ({dia_solve:.3f} s)")
+    if not (mon_rcm.converged() and mon_dia.converged() and abs(its_rcm - its_dia) <= 2):
+        raise RuntimeError("graph: CG through rcm_dia and via_dia disagree")
+    clock("reordering")
+
+    # AMG-CG with the MIS aggregation, Gauss-Seidel or SOR smoothing
+    x_true = torch.as_tensor(np.random.RandomState(0).rand(n), dtype=torch.float32,
+                             device=device)
+    bx = planned_operator(A, {"impl": "segsum"})(x_true)
+    op = planned_operator(A, {"impl": "via_dia"})
+    _, mon_plain, plain_s = solve(op, bx)
+    plain_its = mon_plain.iteration_count()
+    for smoother in ("gauss_seidel", "sor"):
+        t0 = time.perf_counter()
+        M = smoothed_aggregation(A, aggregator="mis", smoother=smoother,
+                                 spmv_config={})
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        log(f"graph: smoothed_aggregation(poisson5pt 1000x1000 f32, aggregator='mis', "
+            f"smoother='{smoother}', spmv_config={{}}) in {setup_s:.2f} s ("
+            + ", ".join(f"{k} {s:.2f}" for k, s in M.setup_s.items()) + " s), colours "
+            + str([lvl.smoother.relax.num_colors if smoother == "gauss_seidel"
+                   else lvl.smoother.relax.gs.num_colors for lvl in M.levels]) + ":")
+        describe_levels(M)
+        cycle_ms = median_ms(lambda: M(bx), samples=3, per_sample=5)
+        cycle_dev, kernels, launches = launch_calls(lambda: M(bx), 3)
+        t0 = time.perf_counter()
+        x, mon = solvers.cg(op, bx, M=M, monitor=Monitor(bx, 2000, 1e-5))
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        its = mon.iteration_count()
+        true_res = float(blas.nrm2(bx - planned_operator(A)(x)) / blas.nrm2(bx))
+        log(f"graph: one V-cycle {cycle_ms:.4f} ms a call, {cycle_dev:.4f} ms device "
+            f"({100 * cycle_dev / cycle_ms:.1f} % busy), {kernels:.1f} kernels "
+            f"recorded and {launches:.1f} launch calls a cycle; AMG-CG (via_dia, "
+            f"rtol 1e-5) {its} iterations, converged {mon.converged()}, true "
+            f"relative residual {true_res:.3e} (CSR kernel), solve {solve_s:.3f} s, "
+            f"{1e3 * solve_s / max(its, 1):.4f} ms/iteration; plain CG on the same "
+            f"b {plain_its} iterations, {plain_s:.3f} s")
+        if not (mon.converged() and true_res < 1e-4 and its < plain_its / 2):
+            raise RuntimeError(f"graph: AMG-CG with {smoother} took {its} iterations "
+                               f"(plain CG {plain_its}), true residual {true_res}")
+        del M, x
+    clock("AMG-CG, MIS and Gauss-Seidel or SOR")
+    A150 = gallery.poisson5pt(150, 150, format="csr", dtype=torch.float64,
+                              device=device)
+    b150 = torch.as_tensor(1.01 * np.random.RandomState(7).rand(A150.num_rows)
+                           + 0.5, device=device)
+    M150 = smoothed_aggregation(A150, aggregator="mis", smoother="gauss_seidel")
+    _, mon150 = solvers.cg(A150, b150, M=M150, monitor=Monitor(b150, 100, 1e-10))
+    its150 = mon150.iteration_count()
+    log(f"graph: poisson5pt 150x150 f64, aggregator='mis', smoother='gauss_seidel', "
+        f"rtol 1e-10: {its150} iterations (the JAX package: "
+        f"{JAX_MIS_GS_150_ITERATIONS}), converged {mon150.converged()}")
+    if its150 != JAX_MIS_GS_150_ITERATIONS or not mon150.converged():
+        raise RuntimeError(f"graph: the 150x150 MIS/GS solve took {its150} "
+                           f"iterations, not {JAX_MIS_GS_150_ITERATIONS}")
+    clock("150x150 against the JAX count")
+
+    # AINV: CG on the cg.cu system, BiCGstab on the krylov path's N.  Each
+    # apply of M is two CSR-kernel SpMVs (Z and W^T) and a scale, so M adds
+    # at least 2 CSR launches an iteration: one apply is counted alone, and
+    # the solve's applies are counted
+    N = nonsym_csr(n, NONSYM_SEED, device)
+    opN = planned_operator(N)
+    plain = {}
+    for label, factory, solver, opx, Ax in (
+            ("bridson_ainv", precond.bridson_ainv, solvers.cg, op, A),
+            ("scaled_bridson_ainv", precond.scaled_bridson_ainv, solvers.cg, op, A),
+            ("nonsym_bridson_ainv", precond.nonsym_bridson_ainv, solvers.bicgstab,
+             opN, N)):
+        t0 = time.perf_counter()
+        M = factory(Ax, 0.1)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        before = read_counts()["csr_spmv"]
+        M(b)
+        per_apply = read_counts()["csr_spmv"] - before
+        if solver not in plain:
+            t0 = time.perf_counter()
+            _, mon = solver(opx, b, monitor=Monitor(b, 2000, 1e-5))
+            torch.cuda.synchronize()
+            plain[solver] = (mon.iteration_count(), time.perf_counter() - t0)
+        applies = []
+
+        def counted(r):
+            applies.append(1)
+            return M(r)
+        t0 = time.perf_counter()
+        _, mon = solver(opx, b, M=counted, monitor=Monitor(b, 2000, 1e-5))
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        its, (plain_its, plain_s) = mon.iteration_count(), plain[solver]
+        log(f"graph: {solver.__name__} with {label}({'N' if Ax is N else 'A'}, 0.1) "
+            f"(Z {M.z.nnz} entries, W^T {M.wt.nnz}, set-up {setup_s:.2f} s): {its} "
+            f"iterations, converged {mon.converged()}, solve {solve_s:.3f} s, "
+            f"{len(applies)} applies of M, {per_apply} CSR-kernel launches an apply; "
+            f"without M {plain_its} iterations, {plain_s:.3f} s")
+        if not (mon.converged() and its < plain_its and per_apply == 2
+                and len(applies) >= its):
+            raise RuntimeError(f"graph: {label} does not cut the iterations or "
+                               f"does not run M through the CSR kernel")
+        del M
+    clock("AINV")
+
+
+def graph_against_plain(device):
+    """Each algorithm on a planned operator, on the card, against the plain
+    path: BFS through the CSR kernel against the pattern's container (plain
+    PyTorch on the card) and the CPU; components, MIS and colours on the
+    card against the CPU; Gauss-Seidel and SOR sweeps through the CSR and
+    DIA kernels, and AINV applies through the CSR kernel, against the
+    containers' plain products; and the rcm_dia SpMV (dia_spmv) against its
+    plain DIA impl, at 100x100 and 10,000 rows, and at full width."""
+    from unittest import mock
+    from cusp_autotuned_tpu_torch import gallery, graph, precond, relaxation
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy, to_scipy
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+
+    def plain_solve_operator(A):
+        return A
+
+    def same(label, got, want):
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise RuntimeError(f"graph: {label}: the planned and plain runs differ")
+
+    def close(label, got, want, rtol=GRAPH_RTOL):
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= rtol:
+            raise RuntimeError(f"graph: {label}: relative error {err:.3e} > {rtol}")
+        return err
+
+    P100 = gallery.poisson5pt(100, 100, format="csr", device=device)
+    N10k = nonsym_csr(10_000, NONSYM_SEED, device)
+    Sn = to_scipy(N10k)
+    R10k = from_scipy((Sn + Sn.T).tocsr(), "csr", device=device)
+    rng = np.random.RandomState(2)
+    worst = 0.0
+    for name, G in (("poisson5pt 100x100", P100), ("10,000 rows, random symmetric", R10k)):
+        Gc = G.to("cpu")
+        for mark in (True, False):
+            got = graph.breadth_first_search(G, 0, mark_levels=mark)
+            with mock.patch("cusp_autotuned_tpu_torch.operators.solve_operator",
+                            plain_solve_operator):
+                same(f"{name} BFS", got, graph.breadth_first_search(G, 0, mark_levels=mark))
+            same(f"{name} BFS (CPU)", got, graph.breadth_first_search(Gc, 0, mark_levels=mark))
+        same(f"{name} components", graph.connected_components(G)[1],
+             graph.connected_components(Gc)[1])
+        for k in (1, 2):
+            same(f"{name} MIS({k})", graph.maximal_independent_set(G, k)[1],
+                 graph.maximal_independent_set(Gc, k)[1])
+        same(f"{name} colours", graph.vertex_coloring(G)[1], graph.vertex_coloring(Gc)[1])
+        b = torch.as_tensor(rng.randn(G.num_rows), dtype=torch.float32, device=device)
+        x0 = torch.as_tensor(rng.randn(G.num_rows), dtype=torch.float32, device=device)
+        gs, so = relaxation.gauss_seidel(G), relaxation.sor(G, omega=1.2)
+        kernels = [planned_operator(G)] + ([planned_operator(G, {"impl": "via_dia"})]
+                                           if G is P100 else [])
+        for op in kernels:
+            for direction in (relaxation.FORWARD, relaxation.BACKWARD,
+                              relaxation.SYMMETRIC):
+                worst = max(worst, close(f"{name} GS {direction} ({op.impl})",
+                                         gs(op, b, x0, direction), gs(G, b, x0, direction)))
+            worst = max(worst, close(f"{name} SOR ({op.impl})", so(op, b, x0),
+                                     so(G, b, x0)))
+    for label, M in (("bridson_ainv", precond.bridson_ainv(P100, 0.1)),
+                     ("scaled_bridson_ainv", precond.scaled_bridson_ainv(P100, 0.1)),
+                     ("nonsym_bridson_ainv", precond.nonsym_bridson_ainv(N10k, 0.1))):
+        r = torch.as_tensor(rng.randn(M.shape[0]), dtype=torch.float32, device=device)
+        if M.z_op.impl != "cuda" or M.wt_op.impl != "cuda":
+            raise RuntimeError(f"graph: {label}'s factors are not on the CSR kernel")
+        worst = max(worst, close(f"{label} apply", M(r),
+                                 dataclasses.replace(M, z_op=M.z, wt_op=M.wt)(r)))
+    rcm_err = []
+    for rows in (10_000, 1_000_000):
+        _, strip_s, _ = shifted_strip(rows, device)
+        x = seeded_x(rows, 4, device)
+        before = read_counts()["dia_spmv"]
+        y = planned_operator(strip_s, {"impl": "rcm_dia"})(x)
+        if read_counts()["dia_spmv"] != before + 1:
+            raise RuntimeError("graph: the rcm_dia SpMV did not launch dia_spmv once")
+        y_plain = planned_operator(strip_s, {"impl": "rcm_dia", "dia_impl": "slices"})(x)
+        rcm_err.append(check_mode(f"graph: rcm_dia SpMV, {rows} rows", y, y_plain,
+                                  DIA_RTOL, DIA_ATOL))
+    log(f"graph: kernel against plain at 100x100 and 10,000 rows: BFS levels and "
+        f"predecessors, components, MIS(1), MIS(2) and colours equal exactly; GS "
+        f"(three directions) and SOR sweeps through the CSR and DIA kernels and the "
+        f"AINV applies through the CSR kernel within {worst:.2e} relative (rtol "
+        f"{GRAPH_RTOL}); the rcm_dia SpMV through dia_spmv at 10,000 and 1,000,000 "
+        f"rows max |diff| {rcm_err[0]:.2e}, {rcm_err[1]:.2e} (rtol {DIA_RTOL}, atol "
+        f"{DIA_ATOL})")
+
+
+def graph_phase(device, A, b):
+    """The graph path on the cg.cu path's A and b, then its algorithms
+    against the plain path; returns the path's launch counts."""
+    t_path = time.perf_counter()
+    seconds = {}
+    mark = [time.perf_counter()]
+
+    def clock(part):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[part] = now - mark[0]
+        mark[0] = now
+
+    reset_counts()
+    graph_parts(device, A, b, clock)
+    launches = read_counts()
+    graph_against_plain(device)
+    clock("kernel against plain")
+    log("graph: seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return launches
+
+
 def check_statuses(where, results, vector_only=()):
     """Raise unless every result is Ok or a refused conversion, or, for an
     impl in `vector_only` walked with a block x, CompilationFailed."""
@@ -2770,6 +3165,7 @@ def main():
     cg_launches, b, viadia_its, viadia_rel = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
     krylov_launches = krylov_phase(device, matrices["poisson5pt 1000x1000 f32"], b)
+    graph_launches = graph_phase(device, matrices["poisson5pt 1000x1000 f32"], b)
     amg_launches, amg_its, M, b_amg = amg_phase(device)
     mesh_launches = multidevice_phase(
         device, matrices["poisson5pt 1000x1000 f32"], b, viadia_its, viadia_rel,
@@ -2781,13 +3177,14 @@ def main():
     suite_launches = suite_phase(device)
     bench_launches = bench_path(device, BENCH_BUDGET_S)
     log(f"launches: cg.cu path {cg_launches}; krylov path {krylov_launches}; "
-        f"amg path {amg_launches}; "
+        f"graph path {graph_launches}; amg path {amg_launches}; "
         f"multidevice path {mesh_launches}; autotune path {tuned_launches}; spmm "
         f"path {spmm_launches}; suite path {suite_launches}; probes path "
         f"{probe_launches}; bench path {bench_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
         [k for k in KRYLOV_KERNELS if krylov_launches[k] < 1] + \
+        [k for k in GRAPH_KERNELS if graph_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
         [k for k in SUITE_KERNELS if suite_launches[k] < 1] + \
@@ -2846,7 +3243,8 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": sum(path[name] for path in (
-                cg_launches, krylov_launches, amg_launches, mesh_launches,
+                cg_launches, krylov_launches, graph_launches, amg_launches,
+                mesh_launches,
                 tuned_launches, spmm_launches, suite_launches, probe_launches,
                 bench_launches)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -10,20 +10,29 @@ under `csrc/`, built on first use (kernels/_build.py); beside each sits a
 plain PyTorch version, which the wrapper takes for CPU tensors.
 
 Ported so far (the cg.cu main path, the autotuner, the block multiply, the
-scattered rails, smoothed-aggregation AMG and the Krylov family):
-  formats/   COO, CSR, DIA, ELL, ELLR, HYB, the dense Array2d
+scattered rails, smoothed-aggregation AMG, the Krylov family and the graph
+slice):
+  formats/   COO, CSR, DIA, ELL, ELLR, HYB, the permutation matrix, the
+             dense Array2d
   ops/       convert, multiply (vectors and dense blocks, with the autotune
-             hook), transpose, BLAS-1 for the Krylov solvers
+             hook), generalized_spmv and the segmented reductions,
+             transpose, BLAS-1 for the Krylov solvers
   kernels/   DIA, CSR, row-binned CSR and nnz-balanced COO SpMV kernels;
              DIA, row-binned and COO SpMM kernels for dense blocks (n, k);
-             the variant registry and the tuning spaces
+             the variant registry (rcm_dia among its moves) and the tuning
+             spaces
   autotune/  the KTT-style tuner, tuned_operator, choose_format, the
              calibration (stream triad, take probe) and the cost model that
              picks an impl before anything is built
-  precond/   diagonal, Jacobi and polynomial smoothers, smoothed-aggregation
-             AMG (strength, aggregation, structured RAP, Multilevel)
-  relaxation/ Jacobi, Chebyshev polynomial
-  native/    the host aggregator, built with g++ at first use
+  precond/   diagonal, AINV (scaled, unscaled, non-symmetric), Jacobi,
+             Gauss-Seidel, SOR and polynomial smoothers, smoothed-
+             aggregation AMG (strength, standard, MIS and grid-blocked
+             aggregation, structured RAP, Multilevel)
+  relaxation/ Jacobi, multicolour Gauss-Seidel, SOR, Chebyshev polynomial
+  graph/     BFS, connected components, MIS(k), vertex colouring, symmetric
+             RCM, the pseudo-peripheral vertex, Hilbert partitioning
+  native/    the host aggregator, RCM orderings and AINV factorisations,
+             built with g++ at first use
   gallery/   stencil generator, poisson5pt, poisson9pt, random, the fork's
              diagonal generators
   solvers/   Monitor, cg, cr, bicg, bicgstab, gmres, cg_m, bicgstab_m,
@@ -41,7 +50,7 @@ the caller names another (utils.config.resolve_device).
 __version__ = "0.1.0"
 
 from cusp_autotuned_tpu_torch import (
-    autotune, backend, eigen, formats, gallery, kernels, ops, precond,
+    autotune, backend, eigen, formats, gallery, graph, kernels, ops, precond,
     relaxation, solvers, utils,
 )
 from cusp_autotuned_tpu_torch.operators import (

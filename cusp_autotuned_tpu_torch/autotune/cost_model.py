@@ -411,12 +411,14 @@ DEFAULT_CLASS = ("segsum", "gather", "rowlen", "slices", "default")
 def label_of(A, config: Dict[str, Any]) -> str:
     """The label under which predict prices config's impl class on A: the
     format's default kernels are "default", the cuda impl on a DIA matrix
-    is "via_dia", and via_dia (or cuda on DIA) with bf16 values is
+    and rcm_dia are "via_dia" (rcm_dia, the DIA kernel on the reordered
+    matrix, takes via_dia's price as in the JAX package, and the stable
+    sort keeps it after via_dia), and these with bf16 values are
     "via_dia_bf16"."""
     impl = config.get("impl", "default")
     if impl in DEFAULT_CLASS:
         return "default"
-    if impl == "cuda" and A.format == "dia":
+    if (impl == "cuda" and A.format == "dia") or impl == "rcm_dia":
         impl = "via_dia"
     if impl == "via_dia" and config.get("value_dtype") == "bfloat16":
         return "via_dia_bf16"

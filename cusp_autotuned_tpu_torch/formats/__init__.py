@@ -1,5 +1,6 @@
 """Containers (counterpart of cusp_autotuned_tpu/formats; COO, CSR, DIA,
-ELL, ELLR, HYB and the dense Array2d are ported so far)."""
+ELL, ELLR, HYB, the permutation matrix and the dense Array2d are ported so
+far)."""
 
 from cusp_autotuned_tpu_torch.formats.base import MatrixBase
 from cusp_autotuned_tpu_torch.formats.coo import COO, coo_matrix
@@ -12,6 +13,9 @@ from cusp_autotuned_tpu_torch.formats.ell import (
     ELL, ELLR, ell_matrix, ellr_matrix, INVALID_INDEX,
 )
 from cusp_autotuned_tpu_torch.formats.hyb import HYB, hyb_matrix
+from cusp_autotuned_tpu_torch.formats.permutation import (
+    PermutationMatrix, permutation_matrix,
+)
 
 SPARSE_FORMATS = ("coo", "csr", "dia", "ell", "ellr", "hyb")
 

@@ -12,7 +12,10 @@ impls:
   hyb         default (plain ELL pass + COO pass)
   and, for csr/coo/ell/ellr/hyb:
               via_dia (re-lay the matrix out as DIA and run the inner DIA
-              impl `dia_impl`), via_dense (densify, torch.matmul), cuda
+              impl `dia_impl`), rcm_dia (csr/ell/ellr: reorder the square
+              matrix by symmetric RCM, then via_dia's DIA impl between two
+              permutations of the vector), via_dense (densify,
+              torch.matmul), cuda
               (the matrix's entries planned as CSR in nnz-balanced tiles
               for csrc/csr_spmv.cu, vectors only), binned (csrc/binned_spmv.cu and, for a dense
               block x (n, k), csrc/binned_spmm.cu), colsort
@@ -32,8 +35,7 @@ The tuning spaces mirror the JAX package's with Hopper axes in place of
 its TPU axes (VMEM windows, lanes, int16 packing): `block_size`,
 `threads_per_row`, `values_per_thread`, `vrow_planes` and `vrow_len`
 (colsort2); routed takes only the block (the JAX rail's `window` is a
-VMEM axis: every x is read through L1/L2 here).  The JAX package's rcm_dia
-impl is not ported yet.
+VMEM axis: every x is read through L1/L2 here).
 """
 from __future__ import annotations
 
@@ -123,6 +125,35 @@ def _build_via_dia(A, config):
     return fn
 
 
+def _build_rcm_dia(A, config):
+    """Format-selection move: reorder the square matrix by symmetric RCM to
+    shrink its band (graph.symmetric_rcm), lay the reordered matrix out as
+    DIA and run the inner DIA impl between two permutations of the vector,
+
+        y = P^T (D (P x)),   D = P A P^T,
+
+    each permutation one index_select."""
+    from cusp_autotuned_tpu_torch.graph.ordering import symmetric_rcm
+    from cusp_autotuned_tpu_torch.ops.convert import convert, coo_arrays
+    from cusp_autotuned_tpu_torch.formats.coo import coo_matrix
+    if A.shape[0] != A.shape[1]:
+        raise FormatConversionException(
+            "rcm_dia requires a square matrix (symmetric permutation)")
+    perm = symmetric_rcm(A).perm.long()
+    inv = torch.argsort(perm)
+    row, col, val, shape = coo_arrays(A)
+    inv_h = inv.cpu().numpy()
+    D = convert(coo_matrix(inv_h[row], inv_h[col], val, shape, device=A.device),
+                "dia")
+    inner = build_spmv(D, {**config, "impl": _inner_dia_impl(config, D)})
+
+    def fn(x):
+        return torch.index_select(inner(torch.index_select(x, 0, perm)), 0, inv)
+
+    fn.plan_stats = {"impl": "rcm_dia"}
+    return fn
+
+
 def _build_via_dense(A, config):
     """Format-selection move: densify and run one dense product.  Viable
     when the matrix fills at least a quarter of its dense form and that
@@ -151,11 +182,13 @@ _MOVES = {"via_dia": _build_via_dia, "via_dense": _build_via_dense,
 VARIANTS: Dict[str, Dict[str, Callable]] = {
     "dia": {"slices": _build_dia_slices, "gather": _build_dia_gather,
             "cuda": _build_cuda("dia")},
-    "csr": {"segsum": _plain("spmv_csr"), **_MOVES, "cuda": _build_cuda("csr")},
+    "csr": {"segsum": _plain("spmv_csr"), **_MOVES, "rcm_dia": _build_rcm_dia,
+            "cuda": _build_cuda("csr")},
     "coo": {"segsum": _plain("spmv_coo"), **_MOVES, "cuda": _build_cuda("coo")},
-    "ell": {"gather": _plain("spmv_ell"), **_MOVES, "cuda": _build_cuda("ell")},
+    "ell": {"gather": _plain("spmv_ell"), **_MOVES, "rcm_dia": _build_rcm_dia,
+            "cuda": _build_cuda("ell")},
     "ellr": {"gather": _plain("spmv_ell"), "rowlen": _plain("spmv_ellr"),
-             **_MOVES, "cuda": _build_cuda("ellr")},
+             **_MOVES, "rcm_dia": _build_rcm_dia, "cuda": _build_cuda("ellr")},
     "hyb": {"default": _plain("spmv_hyb"), **_MOVES, "cuda": _build_cuda("hyb")},
 }
 
@@ -170,11 +203,12 @@ _DEFAULTS = {
 
 # impls of each format's tuning walk
 _RAILS = ("binned", "colsort", "colsort2", "routed")
+_DIA_MOVES = ("via_dia", "rcm_dia")       # the impls with an inner `dia_impl`
 _SPACE_IMPLS = {
-    "csr": ("segsum", "via_dia", "via_dense", "cuda", *_RAILS),
+    "csr": ("segsum", "via_dia", "via_dense", "rcm_dia", "cuda", *_RAILS),
     "coo": ("segsum", "via_dia", "via_dense", "cuda", *_RAILS),
-    "ell": ("gather", "via_dia", "via_dense", "cuda", *_RAILS),
-    "ellr": ("rowlen", "via_dia", "via_dense", "cuda", *_RAILS),
+    "ell": ("gather", "via_dia", "via_dense", "rcm_dia", "cuda", *_RAILS),
+    "ellr": ("rowlen", "via_dia", "via_dense", "rcm_dia", "cuda", *_RAILS),
     "hyb": ("default", "via_dia", "cuda", "binned"),
 }
 BLOCK_SIZES = (128, 256, 512)             # the fork's BLOCK_SIZE axis
@@ -205,13 +239,14 @@ def default_config(A, x=None) -> Dict[str, Any]:
 def tuning_space(A) -> TuningSpace:
     """The constrained tuning space of a matrix's format.  `impl` is the
     kernel strategy, including the format-selection moves; `dia_impl` the
-    inner DIA impl of via_dia; `block_size` the threads per block of every
-    CUDA launch (for the `cuda` impl it also sets the tile, block_size *
-    kernels/csr.py's ENTRIES_PER_THREAD entries); `threads_per_row`
+    inner DIA impl of via_dia and rcm_dia; `block_size` the threads per
+    block of every CUDA launch (for the `cuda` impl it also sets the tile,
+    block_size * kernels/csr.py's ENTRIES_PER_THREAD entries); `threads_per_row`
     binned's lanes per row; `values_per_thread`
     colsort's chunk; `vrow_planes` and `vrow_len` colsort2's planes and
     virtual-row length; colsort2 and routed on blocks of 256 or 512
-    threads (41 configurations for csr and coo).
+    threads (41 configurations for coo, 45 for csr, ell and ellr, whose
+    walks take rcm_dia too).
     Constraints pin each axis to 0 or
     'none' where it does not apply, as the fork pins PREFETCH_TYPE.  The
     opt-in `value_dtype` axis (CUSP_TORCH_TUNE_BF16) adds bf16 storage to
@@ -237,7 +272,7 @@ def tuning_space(A) -> TuningSpace:
     space.add_parameter("block_size", (0, *BLOCK_SIZES))
     space.add_parameter("threads_per_row", THREADS_PER_ROW)
     space.add_constraint(("impl", "dia_impl"),
-                         lambda i, d: (d == "none") == (i != "via_dia"))
+                         lambda i, d: (d == "none") == (i not in _DIA_MOVES))
     space.add_constraint(
         ("impl", "dia_impl", "block_size"),
         lambda i, d, b: (b > 0) == (i in ("cuda", *_RAILS) or d == "cuda"))
@@ -260,7 +295,7 @@ def tuning_space(A) -> TuningSpace:
     if search_bf16:
         space.add_parameter("value_dtype", ("none", "bfloat16"))
         space.add_constraint(("impl", "value_dtype"),
-                             lambda i, v: v == "none" or i == "via_dia")
+                             lambda i, v: v == "none" or i in _DIA_MOVES)
     return space
 
 

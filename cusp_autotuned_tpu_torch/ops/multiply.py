@@ -5,10 +5,14 @@ format-specialised SpMV of cusp/system/detail/generic/multiply/spmv.h).
 The per-format functions here are the plain PyTorch paths, for x of shape
 (n,) or (n, k), on any device.  The hand-written kernels are reached
 through kernels.variants.build_spmv, operators.planned_operator and the
-autotuner.
+autotuner.  generalized_spmv, the semiring product that the graph
+algorithms reduce to, is plain PyTorch too: the JAX package computes it
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -62,6 +66,10 @@ def spmv_hyb(A: F.HYB, x):
     return spmv_ell(A.ell, x) + spmv_coo(A.coo, x)
 
 
+def spmv_permutation(A: F.PermutationMatrix, x):
+    return torch.index_select(x, 0, A.perm)
+
+
 _SPMV = {"coo": spmv_coo, "csr": spmv_csr, "dia": spmv_dia,
          "ell": spmv_ell, "ellr": spmv_ell, "hyb": spmv_hyb}
 
@@ -81,6 +89,8 @@ def multiply(A, B, *, use_autotuning: bool | None = None):
         B = B.to_dense().contiguous()
     if isinstance(A, OPERATOR_TYPES):
         return A(B)
+    if isinstance(A, F.PermutationMatrix):
+        return spmv_permutation(A, torch.as_tensor(B, device=A.device))
     if F.is_sparse(A):
         if F.is_sparse(B):
             raise NotImplementedException("sparse x sparse is not ported yet")
@@ -96,3 +106,69 @@ def multiply(A, B, *, use_autotuning: bool | None = None):
     if F.is_sparse(B):
         raise NotImplementedException("dense x sparse is not ported yet")
     return torch.matmul(A, B)
+
+
+def _coo_view(A):
+    """(row, col, val) tensors of A's stored entries on its device, grouped
+    by row except for HYB (its ELL part, then its COO part): COO and CSR
+    trimmed of their padding, ELL and ELLR slots without the -1 sentinel,
+    DIA slots inside the matrix with nonzero data, as the JAX package's
+    view reads them."""
+    if isinstance(A, (F.COO, F.CSR)):
+        return A.row[:A.nnz], A.col[:A.nnz], A.val[:A.nnz]
+    if isinstance(A, (F.ELL, F.ELLR)):
+        rows = torch.arange(A.col.shape[1], device=A.col.device).expand_as(A.col)
+        ok = (A.col != F.INVALID_INDEX).t()         # row-major: sorted by row
+        return rows.t()[ok], A.col.t()[ok], A.val.t()[ok]
+    if isinstance(A, F.HYB):
+        parts = [_coo_view(A.ell), _coo_view(A.coo)]
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+    if isinstance(A, F.DIA):
+        m, n = A.shape
+        rows = torch.arange(A.data.shape[1], device=A.device)[None, :]
+        cols = rows + torch.tensor(A.offsets, device=A.device)[:, None]
+        ok = ((cols >= 0) & (cols < n) & (rows < m) & (A.data != 0)).t()
+        return (rows.expand_as(cols).t()[ok], cols.t()[ok], A.data.t()[ok])
+    raise TypeError(f"no COO view for {type(A)}")
+
+
+# reduce -> (scatter_reduce mode, the same reduce on two tensors)
+_SCATTER_REDUCE = {torch.maximum: ("amax", torch.maximum),
+                   max: ("amax", torch.maximum),
+                   torch.minimum: ("amin", torch.minimum),
+                   min: ("amin", torch.minimum),
+                   operator.mul: ("prod", torch.mul),
+                   torch.mul: ("prod", torch.mul),
+                   torch.multiply: ("prod", torch.mul)}
+
+
+def generalized_spmv(A, x, y, initialize, combine, reduce):
+    """z[i] = reduce(initialize(y[i]), reduce_{j in row i} combine(A_ij, x_j)),
+    and z[i] = initialize(y[i]) for a row with no entry.
+
+    Parity: cusp::generalized_spmv (cusp/detail/multiply.inl:160-199) and
+    the JAX package's ops/multiply.py:155-192.  Addition goes through
+    index_add_, max, min and mul through scatter_reduce, and any other
+    associative reduce (a function of two tensors) through a stable sort
+    by row and ops.segment.segment_reduce."""
+    from cusp_autotuned_tpu_torch.ops.segment import segment_reduce, segment_sum
+    x = torch.as_tensor(x, device=A.device)
+    y = torch.as_tensor(y, device=A.device)
+    row, col, val = _coo_view(A)
+    row = row.long()
+    init = initialize(y)
+    combined = combine(val, torch.index_select(x, 0, col.long()))
+    if reduce in (operator.add, torch.add):
+        return init + segment_sum(combined, row, A.num_rows)
+    # the rows with an entry (index_fill_, unlike bincount, needs no read
+    # of the device for its size)
+    mask = torch.zeros(A.num_rows, dtype=torch.bool, device=A.device).index_fill_(0, row, True)
+    if reduce in _SCATTER_REDUCE:
+        mode, reduce = _SCATTER_REDUCE[reduce]
+        contrib = torch.zeros(A.num_rows, dtype=combined.dtype, device=A.device)
+        contrib = contrib.scatter_reduce_(0, row, combined, mode, include_self=False)
+    else:
+        order = torch.sort(row, stable=True).indices
+        contrib, mask = segment_reduce(combined[order], row[order], A.num_rows,
+                                       reduce)
+    return torch.where(mask, reduce(init, contrib), init)

@@ -34,9 +34,11 @@ def _transpose_dia(A):
 
 def transpose(A):
     """A^T: a tensor's last two axes swapped; a sparse container in its
-    own format on its own device."""
+    own format on its own device; a permutation's inverse."""
     if isinstance(A, torch.Tensor):
         return A.transpose(-1, -2)
+    if isinstance(A, F.PermutationMatrix):
+        return F.permutation_matrix(torch.argsort(A.perm))   # P^T = P^-1
     if not F.is_sparse(A):
         raise TypeError(f"cannot transpose {type(A)}")
     if isinstance(A, F.DIA):

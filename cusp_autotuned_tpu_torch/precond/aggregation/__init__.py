@@ -227,8 +227,9 @@ def smoothed_aggregation(A, B=None, theta: float = 0.0,
     (default ones).  aggregator: 'auto' (grid-blocked aggregation where the
     level is a raster-ordered 2-D stencil and strength is the unthresholded
     'symmetric', else standard) | 'standard' | 'structured' (raises where no
-    grid is detected) | 'mis' (not ported yet).  smoother: 'jacobi' |
-    'polynomial' ('gauss_seidel' and 'sor' are not ported yet).  strength:
+    grid is detected) | 'mis' (MIS(2)-rooted, the roots drawn on A's
+    device).  smoother: 'jacobi' | 'gauss_seidel' | 'sor' | 'polynomial'
+    (Gauss-Seidel and SOR colour each level on its device).  strength:
     'symmetric' (theta threshold) | 'evolution' (epsilon drop factor).
 
     spmv_config: None (the V-cycle multiplies the containers) | {} (every

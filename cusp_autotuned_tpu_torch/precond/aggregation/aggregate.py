@@ -1,16 +1,14 @@
 """Aggregation (counterpart of cusp_autotuned_tpu/precond/aggregation/
 aggregate.py; parity: cusp/precond/aggregation/system/detail/generic/
 standard_aggregate.h): the greedy three-pass aggregation over the strength
-graph, through the port's native aggregator, and the grid-blocked
-aggregation of raster-ordered 2-D stencils.  Each returns (aggregate id per
-row, root row per aggregate) as host int32 arrays.  The MIS(2) aggregation
-needs graph.mis, which is not ported yet."""
+graph, through the port's native aggregator, the MIS(2)-rooted
+aggregation, and the grid-blocked aggregation of raster-ordered 2-D
+stencils.  Each returns (aggregate id per row, root row per aggregate) as
+host int32 arrays."""
 
 from __future__ import annotations
 
 import numpy as np
-
-from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
 
 def standard_aggregate(C):
@@ -95,7 +93,34 @@ def structured_aggregate(C, block=(3, 3), grid=None):
 
 
 def mis_aggregate(C, seed: int = 0):
-    """MIS(2)-rooted aggregation: needs graph.mis, which is not ported yet."""
-    raise NotImplementedException(
-        "mis_aggregate needs graph.mis (a maximal independent set), which "
-        "waits for the graph slice of the port")
+    """MIS(2)-rooted aggregation (parity: generic/mis_aggregate.h:117-197):
+    the roots are an MIS(2) of the strength graph C, drawn on C's device
+    (graph.maximal_independent_set); in each of two rounds every vertex
+    still unassigned joins the aggregate of its first neighbour, in CSR
+    column order, that the previous round had assigned (every vertex is
+    within two hops of a root); stragglers become singletons.  The JAX
+    package runs the rounds as a Python loop over the vertices; here each
+    round is a few numpy passes over the entries, with the same outcome."""
+    from cusp_autotuned_tpu_torch.backend.reference import to_scipy
+    from cusp_autotuned_tpu_torch.formats.base import host_array
+    from cusp_autotuned_tpu_torch.graph.mis import maximal_independent_set
+    n = C.num_rows
+    _, stencil = maximal_independent_set(C, k=2, seed=seed)
+    roots = np.nonzero(host_array(stencil))[0]
+    S = to_scipy(C).tocsr()
+    col = np.asarray(S.indices)
+    row = np.repeat(np.arange(n), np.diff(S.indptr))
+    agg = np.full(n, -1, np.int64)
+    agg[roots] = np.arange(roots.size)
+    for _ in range(2):
+        hit = (agg[row] == -1) & (agg[col] != -1)
+        # entries run in row order, so a row's first hit is its first index
+        joined, first = np.unique(row[hit], return_index=True)
+        newagg = agg.copy()
+        newagg[joined] = agg[col[hit][first]]
+        agg = newagg
+    stray = np.nonzero(agg == -1)[0]
+    if stray.size:
+        agg[stray] = np.arange(stray.size) + roots.size
+        roots = np.concatenate([roots, stray])
+    return agg.astype(np.int32), roots.astype(np.int32)

@@ -1,8 +1,9 @@
 """Smoother adapters: the presmooth/postsmooth interface of the multilevel
 V-cycle (counterpart of cusp_autotuned_tpu/precond/smoothers.py; parity:
-cusp/precond/smoother/{jacobi,polynomial}_smoother.h).  presmooth starts
-from x0 = 0, so a Jacobi presmooth needs no SpMV.  The Gauss-Seidel and SOR
-smoothers need the multicolour graph colouring, which is not ported yet."""
+cusp/precond/smoother/{jacobi,gauss_seidel,sor,polynomial}_smoother.h).
+presmooth starts from x0 = 0, so a Jacobi presmooth needs no SpMV.
+Gauss-Seidel presmooths forward and postsmooths backward; SOR sweeps in
+its default direction both times."""
 
 from __future__ import annotations
 
@@ -11,9 +12,12 @@ from typing import Tuple
 
 import torch
 
+from cusp_autotuned_tpu_torch.relaxation.gauss_seidel import (
+    BACKWARD, FORWARD, GaussSeidel, gauss_seidel,
+)
 from cusp_autotuned_tpu_torch.relaxation.jacobi import Jacobi, jacobi
 from cusp_autotuned_tpu_torch.relaxation.polynomial import Polynomial, polynomial
-from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
+from cusp_autotuned_tpu_torch.relaxation.sor import SOR, sor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +29,34 @@ class JacobiSmoother:
 
     def presmooth(self, A, b):
         return self.relax.scaled_inv * b          # x0 = 0: omega D^-1 b
+
+    def postsmooth(self, A, b, x):
+        return self.relax(A, b, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussSeidelSmoother:
+    relax: GaussSeidel
+    shape: Tuple[int, int] = (0, 0)
+
+    format = "gauss_seidel_smoother"
+
+    def presmooth(self, A, b):
+        return self.relax(A, b, torch.zeros_like(b), FORWARD)
+
+    def postsmooth(self, A, b, x):
+        return self.relax(A, b, x, BACKWARD)
+
+
+@dataclasses.dataclass(frozen=True)
+class SORSmoother:
+    relax: SOR
+    shape: Tuple[int, int] = (0, 0)
+
+    format = "sor_smoother"
+
+    def presmooth(self, A, b):
+        return self.relax(A, b, torch.zeros_like(b))
 
     def postsmooth(self, A, b, x):
         return self.relax(A, b, x)
@@ -57,13 +89,9 @@ def polynomial_smoother(A) -> PolynomialSmoother:
     return PolynomialSmoother(relax=polynomial(A), shape=tuple(A.shape))
 
 
-def gauss_seidel_smoother(A):
-    raise NotImplementedException(
-        "gauss_seidel_smoother needs graph.coloring (multicolour Gauss-Seidel), "
-        "which waits for the graph slice of the port")
+def gauss_seidel_smoother(A) -> GaussSeidelSmoother:
+    return GaussSeidelSmoother(relax=gauss_seidel(A), shape=tuple(A.shape))
 
 
-def sor_smoother(A, omega: float = 1.0):
-    raise NotImplementedException(
-        "sor_smoother needs graph.coloring (multicolour SOR), which waits for "
-        "the graph slice of the port")
+def sor_smoother(A, omega: float = 1.0) -> SORSmoother:
+    return SORSmoother(relax=sor(A, omega), shape=tuple(A.shape))

@@ -40,7 +40,6 @@ from cusp_autotuned_tpu_torch.precond.aggregation import (
 )
 from cusp_autotuned_tpu_torch.relaxation import jacobi
 from cusp_autotuned_tpu_torch.solvers.monitor import Monitor
-from cusp_autotuned_tpu_torch.utils.exceptions import NotImplementedException
 
 from tests.torch_parity import one_thread, port_of  # noqa: F401
 
@@ -313,8 +312,14 @@ def test_jacobi_relaxation_and_diagonal_preconditioner_match_jax():
 
 
 def test_unported_smoothers_and_aggregator_raise():
+    """The Gauss-Seidel and SOR smoothers and the MIS aggregator, which
+    raised until the graph slice was ported, raise no longer: each builds
+    a hierarchy that preconditions CG to convergence (their iteration
+    counts against the JAX package's: tests/test_torch_gauss_seidel.py)."""
     _, A = _matrix("poisson5pt 40x40")
+    b = torch.from_numpy(_b(A.num_rows))
     for kw in ({"smoother": "gauss_seidel"}, {"smoother": "sor"},
                {"aggregator": "mis"}):
-        with pytest.raises(NotImplementedException, match="graph"):
-            precond.smoothed_aggregation(A, **kw)
+        M = precond.smoothed_aggregation(A, **kw)
+        _, mon = solvers.cg(A, b, M=M, monitor=Monitor(b, 200, 1e-8))
+        assert mon.converged(), kw

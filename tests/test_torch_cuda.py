@@ -1254,6 +1254,102 @@ def test_smoothed_aggregation_plans_on_card(cuda_device):
         assert mon.converged() and mon.iteration_count() < 40
 
 
+# -- the graph slice on the card: the traversals, Gauss-Seidel, AINV, rcm_dia
+
+def _graphs(device):
+    """poisson5pt 60x40 and a seeded symmetric random 3,000-row graph."""
+    rng = np.random.RandomState(8)
+    S = sp.random(3000, 3000, density=0.002, random_state=rng, dtype=np.float32)
+    return {"poisson": gallery.poisson5pt(60, 40, format="csr", device=device),
+            "random": from_scipy((S + S.T + sp.eye(3000, dtype=np.float32)).tocsr(), "csr",
+                                 device=device)}
+
+
+@pytest.mark.parametrize("name", ["poisson", "random"])
+def test_graph_algorithms_on_card_match_the_cpu(cuda_device, name):
+    """BFS runs each level through the CSR kernel (one launch a level);
+    levels, predecessors, components, MIS(1), MIS(2) and colours equal the
+    CPU's exactly."""
+    from cusp_autotuned_tpu_torch import graph
+    G = _graphs(cuda_device)[name]
+    Gc = G.to("cpu")
+    before = csr_spmv.launches
+    levels = graph.breadth_first_search(G, 0)
+    assert levels.device.type == "cuda"
+    assert csr_spmv.launches - before >= int(levels.max()) + 1
+    assert torch.equal(levels.cpu(), graph.breadth_first_search(Gc, 0))
+    assert torch.equal(graph.breadth_first_search(G, 5, mark_levels=False).cpu(),
+                       graph.breadth_first_search(Gc, 5, mark_levels=False))
+    for fn in (graph.connected_components, graph.vertex_coloring,
+               lambda A: graph.maximal_independent_set(A, 1),
+               lambda A: graph.maximal_independent_set(A, 2)):
+        (count, got), (count_c, want) = fn(G), fn(Gc)
+        assert count == count_c and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["poisson", "random"])
+def test_gauss_seidel_and_sor_through_kernels_match_plain_on_card(cuda_device, name):
+    """A sweep through the kernels against the containers' plain products,
+    within 1e-5 of the largest entry (the sums run in another order, and a
+    sweep on the random graph, which is not diagonally dominant, carries
+    their rounding into entries far below the largest)."""
+    from cusp_autotuned_tpu_torch import relaxation
+    G = _graphs(cuda_device)[name]
+    b, x0 = _x(G.num_rows, cuda_device, seed=1), _x(G.num_rows, cuda_device, seed=2)
+    gs, so = relaxation.gauss_seidel(G), relaxation.sor(G, omega=1.2)
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    for config in ({}, {"impl": "via_dia"}) if name == "poisson" else ({},):
+        op = planned_operator(G, config or None)
+        for direction in ("forward", "backward", "symmetric"):
+            close(gs(op, b, x0, direction), gs(G, b, x0, direction))
+        close(so(op, b, x0), so(G, b, x0))
+
+
+def test_ainv_applies_through_the_csr_kernel_on_card(cuda_device):
+    """M r is two CSR-kernel launches and a scale, equal to the containers'
+    plain products to rtol 1e-5."""
+    import dataclasses
+    from cusp_autotuned_tpu_torch import precond
+    G = _graphs(cuda_device)["poisson"]
+    r = _x(G.num_rows, cuda_device)
+    for M in (precond.bridson_ainv(G, 0.1), precond.scaled_bridson_ainv(G, 0.1),
+              precond.nonsym_bridson_ainv(G, 0.1)):
+        assert M.z_op.impl == M.wt_op.impl == "cuda"
+        before = csr_spmv.launches
+        y = M(r)
+        assert csr_spmv.launches - before == 2
+        torch.testing.assert_close(y, dataclasses.replace(M, z_op=M.z, wt_op=M.wt)(r),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_rcm_dia_launches_the_dia_kernel_on_card(cuda_device):
+    """A scrambled 4-wide strip: rcm_dia plans a narrow band and runs
+    dia_spmv once a product, equal to the plain DIA impl's product."""
+    S = gallery.poisson5pt(4, 2500, format="csr", device="cpu").to_scipy().tocsr()
+    p = np.random.RandomState(11).permutation(S.shape[0])
+    A = from_scipy(S[p][:, p], "csr", device=cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    before = dia_spmv.launches
+    y = planned_operator(A, {"impl": "rcm_dia"})(x)
+    assert dia_spmv.launches - before == 1
+    torch.testing.assert_close(
+        y, planned_operator(A, {"impl": "rcm_dia", "dia_impl": "slices"})(x), **TOL["dia"])
+
+
+def test_mis_gauss_seidel_hierarchy_on_card(cuda_device):
+    from cusp_autotuned_tpu_torch.precond import smoothed_aggregation
+    A = gallery.poisson5pt(200, 200, format="csr", device=cuda_device)
+    b = _x(A.num_rows, cuda_device)
+    for smoother in ("gauss_seidel", "sor"):
+        M = smoothed_aggregation(A, aggregator="mis", smoother=smoother,
+                                 spmv_config={})
+        x, mon = solvers.cg(A, b, M=M, monitor=Monitor(b, 300, 1e-5))
+        assert mon.converged() and torch.isfinite(x).all()
+
+
 # -- the multi-device path on one card: the DIA band kernels and sharded plans
 
 @pytest.mark.parametrize("k", [1, 3, 16])

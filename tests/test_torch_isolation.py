@@ -37,7 +37,10 @@ SLICE_MODULES = (
     "benchmarks.dia_probe", "benchmarks.dia_spmm_probe", "benchmarks.routed_probe",
     "utils.profiling", "bench", "ops.transpose", "solvers.cr",
     "solvers.bicgstab", "solvers.bicg", "solvers.gmres", "solvers.cg_m",
-    "solvers.bicgstab_m", "solvers.mixed",
+    "solvers.bicgstab_m", "solvers.mixed", "formats.permutation",
+    "ops.segment", "graph", "graph.traversal", "graph.mis", "graph.coloring",
+    "graph.ordering", "graph.hilbert", "relaxation.gauss_seidel",
+    "relaxation.sor", "precond.ainv",
 )
 # the JAX side: JAX itself, the JAX package, and the JAX repository's
 # bench.py and benchmarks/ folder
