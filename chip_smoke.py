@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Ten main paths, each driven with every kernel's launch count set to 0
+Eleven main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
@@ -40,9 +40,26 @@ just before it and read just after:
             the 150x150 f64 MIS/Gauss-Seidel solve held to the JAX
             package's count; CG with bridson_ainv and scaled_bridson_ainv
             on the cg.cu system and BiCGstab with nonsym_bridson_ainv on the
-            krylov path's non-symmetric 1M-row matrix, each against its
-            solve without M; then each algorithm on a planned operator
+            krylov path's non-symmetric recipe at 100,000 rows, each against
+            its solve without M; then each algorithm on a planned operator
             against the plain path at 100x100 and 10,000 rows;
+  spgemm    sparse products on the cg.cu path's A (poisson5pt 1000x1000
+            CSR f32, 4,996,000 entries): C = multiply(A, A) (24,964,008
+            expanded products, so two slices of at most 16 << 20 and a
+            merge) against scipy's A @ A bit for bit and against a second
+            call bit for bit; C x through the via_dia plan (dia_spmv, 13
+            diagonals) and a CSR plan (csr_spmv) against A (A x) through
+            A's via_dia plan; the Galerkin chain spgemm(P^T, spgemm(A, P))
+            on smoothed_aggregation(A)'s first prolongator against the
+            host's galerkin_product; min-plus generalized_spgemm on
+            grid2d(1000, 1000) with a zero diagonal added on the card (every
+            entry the Manhattan distance, the pattern that of A A, two
+            slices) and on tests/test_ops.py:266's 10,000-row f64 recipe
+            against the CPU's; multiply(X^T, A) for a seeded X (1M x 16)
+            against (A^T X)^T through the via_dia plan (dia_spmm); the
+            product's s, slices, kernels and launch calls, peak device
+            memory, scipy's time and cuSPARSE's (torch.sparse CSR @ CSR) as
+            yardsticks;
   amg       smoothed-aggregation AMG-CG, the JAX package's
             benchmarks/amg_endtoend.py in the port's idiom: calibrate() (the
             cost model's rates, the take probe's among them),
@@ -63,7 +80,8 @@ just before it and read just after:
             the cg.cu solve through tuned_operator (timed in turns with the
             via_dia solve), the dynamic multiply
             hook on a 65,536-row diagonal matrix, and choose_format over
-            dia, ell, ellr, csr, coo and hyb;
+            dia, ell, ellr, csr, coo and hyb on poisson5pt 500x500 (six
+            walks; 67 s at 1000x1000 on the card's host);
   spmm      the block multiply: the tuner's walk on poisson5pt 1000x1000
             CSR with a seeded X (1,000,000 x 16) under its per-k signature,
             tuned_operator(A, X) applied to X, the multiply hook on an
@@ -192,6 +210,7 @@ Phases:
                operator against one through the plain operator
   krylov       the krylov path
   graph        the graph path
+  spgemm       the spgemm path
   amg          the amg path
   autotune     the autotune path
   spmm         the spmm path, with the untuned default (binned) against
@@ -218,6 +237,7 @@ and {"ok": true, "device": {...}}.
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1665,6 +1685,7 @@ GRAPH_KERNELS = ("dia_spmv", "csr_spmv")
 SCRAMBLE_SEED = 11
 STRIP_WIDTH, STRIP_SHIFT = 4, 0.5
 GRAPH_RTOL = 1e-5                    # GS, SOR and AINV applies, f32
+NONSYM_AINV_ROWS = 100_000           # the non-symmetric AINV's instance
 
 
 def scrambled(S, seed):
@@ -1874,28 +1895,32 @@ def graph_parts(device, A, b, clock):
                            f"iterations, not {JAX_MIS_GS_150_ITERATIONS}")
     clock("150x150 against the JAX count")
 
-    # AINV: CG on the cg.cu system, BiCGstab on the krylov path's N.  Each
-    # apply of M is two CSR-kernel SpMVs (Z and W^T) and a scale, so M adds
-    # at least 2 CSR launches an iteration: one apply is counted alone, and
-    # the solve's applies are counted
-    N = nonsym_csr(n, NONSYM_SEED, device)
+    # AINV: CG on the cg.cu system, BiCGstab on the krylov path's
+    # non-symmetric recipe at NONSYM_AINV_ROWS rows (its host factorisation
+    # took 43-70 s at 1M rows, PERF.md).  Each apply of M is two CSR-kernel
+    # SpMVs (Z and W^T) and a scale, so M adds at least 2 CSR launches an
+    # iteration: one apply is counted alone, and the solve's applies are
+    # counted
+    N = nonsym_csr(NONSYM_AINV_ROWS, NONSYM_SEED, device)
     opN = planned_operator(N)
+    bN = torch.as_tensor(np.random.RandomState(0).rand(N.num_rows),
+                         dtype=torch.float32, device=device)
     plain = {}
-    for label, factory, solver, opx, Ax in (
-            ("bridson_ainv", precond.bridson_ainv, solvers.cg, op, A),
-            ("scaled_bridson_ainv", precond.scaled_bridson_ainv, solvers.cg, op, A),
+    for label, factory, solver, opx, Ax, rhs in (
+            ("bridson_ainv", precond.bridson_ainv, solvers.cg, op, A, b),
+            ("scaled_bridson_ainv", precond.scaled_bridson_ainv, solvers.cg, op, A, b),
             ("nonsym_bridson_ainv", precond.nonsym_bridson_ainv, solvers.bicgstab,
-             opN, N)):
+             opN, N, bN)):
         t0 = time.perf_counter()
         M = factory(Ax, 0.1)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         before = read_counts()["csr_spmv"]
-        M(b)
+        M(rhs)
         per_apply = read_counts()["csr_spmv"] - before
         if solver not in plain:
             t0 = time.perf_counter()
-            _, mon = solver(opx, b, monitor=Monitor(b, 2000, 1e-5))
+            _, mon = solver(opx, rhs, monitor=Monitor(rhs, 2000, 1e-5))
             torch.cuda.synchronize()
             plain[solver] = (mon.iteration_count(), time.perf_counter() - t0)
         applies = []
@@ -1904,11 +1929,12 @@ def graph_parts(device, A, b, clock):
             applies.append(1)
             return M(r)
         t0 = time.perf_counter()
-        _, mon = solver(opx, b, M=counted, monitor=Monitor(b, 2000, 1e-5))
+        _, mon = solver(opx, rhs, M=counted, monitor=Monitor(rhs, 2000, 1e-5))
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
         its, (plain_its, plain_s) = mon.iteration_count(), plain[solver]
-        log(f"graph: {solver.__name__} with {label}({'N' if Ax is N else 'A'}, 0.1) "
+        log(f"graph: {solver.__name__} with {label}"
+            f"({f'N ({N.num_rows} rows)' if Ax is N else 'A'}, 0.1) "
             f"(Z {M.z.nnz} entries, W^T {M.wt.nnz}, set-up {setup_s:.2f} s): {its} "
             f"iterations, converged {mon.converged()}, solve {solve_s:.3f} s, "
             f"{len(applies)} applies of M, {per_apply} CSR-kernel launches an apply; "
@@ -2027,6 +2053,200 @@ def graph_phase(device, A, b):
     clock("kernel against plain")
     log("graph: seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
+    return launches
+
+
+# the spgemm path: its tolerances and the kernels it must launch
+SPGEMM_KERNELS = ("dia_spmv", "csr_spmv", "dia_spmm")
+SPGEMM_RTOL = 1e-5                   # C x against A (A x), X^T A, RAP; f32
+MINPLUS_RTOL = 1e-10                 # the 10,000-row f64 product, card vs CPU
+
+
+def min_plus_10k(device, seed=5, n=10_000, density=3e-4):
+    """tests/test_ops.py:266's recipe, a 10,000-row f64 matrix of density
+    3e-4 plus I, drawn by numpy index draws (scipy's sp.random visits every
+    one of the 10^8 cells), as a COO on `device`."""
+    import scipy.sparse as sp
+    from cusp_autotuned_tpu_torch.backend.reference import from_scipy
+    rng = np.random.RandomState(seed)
+    k = int(density * n * n)
+    S = sp.coo_matrix((rng.rand(k), (rng.randint(0, n, k), rng.randint(0, n, k))),
+                      shape=(n, n)) + sp.eye(n)
+    return from_scipy(S.tocsr().astype(np.float64), "coo", device=device)
+
+
+def timed_s(fn):
+    """(fn(), host seconds to its end on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_max(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def spgemm_phase(device, A):
+    """The spgemm path on the cg.cu path's A; returns the path's launch
+    counts.  Any failed check raises."""
+    from cusp_autotuned_tpu_torch import (
+        add, gallery, generalized_spgemm, multiply, transpose,
+    )
+    from cusp_autotuned_tpu_torch.backend.reference import to_scipy
+    from cusp_autotuned_tpu_torch.formats import csr_matrix
+    from cusp_autotuned_tpu_torch.operators import planned_operator
+    from cusp_autotuned_tpu_torch.ops import spgemm as SG
+    from cusp_autotuned_tpu_torch.ops.format_utils import count_diagonals
+    from cusp_autotuned_tpu_torch.precond import smoothed_aggregation
+    from cusp_autotuned_tpu_torch.precond.aggregation.smooth import galerkin_product
+
+    t_path = time.perf_counter()
+    n = A.num_rows
+    side = math.isqrt(n)                        # A is poisson5pt(side, side)
+    small = gallery.poisson5pt(50, 50, format="csr", device=device)
+    multiply(small, small)                      # warm-up: allocator, sort
+    reset_counts()
+
+    # C = A A: two slices and a merge, against scipy and a second call
+    plan = SG.plan(A, A)
+    slices = [last - first for _, _, first, last in plan.bounds]
+    del plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C, spgemm_s = timed_s(lambda: multiply(A, A))
+    peak = torch.cuda.max_memory_allocated() - base
+    again = [timed_s(lambda: multiply(A, A)) for _ in range(2)]
+    repeat = all(torch.equal(getattr(C, f), getattr(C2, f))
+                 for C2, _ in again for f in ("indptr", "col", "val", "row"))
+    again_s = ", ".join(f"{t:.4f}" for _, t in again)
+    del again
+    S = to_scipy(A).tocsr()
+    t0 = time.perf_counter()
+    R = (S @ S).tocsr()
+    scipy_s = time.perf_counter() - t0
+    R.sort_indices()
+    same_pattern = (np.array_equal(C.indptr.cpu().numpy(), R.indptr)
+                    and np.array_equal(C.col[:C.nnz].cpu().numpy(), R.indices))
+    same_bits = C.val[:C.nnz].cpu().numpy().tobytes() == R.data.tobytes()
+    diagonals = count_diagonals(n, n, C.row[:C.nnz].cpu(), C.col[:C.nnz].cpu())
+    dev_ms, kernels, calls = launch_calls(lambda: multiply(A, A), 1)
+    by_kernel = {}
+    for key, (ms, _) in device_kernels(lambda: multiply(A, A), 1).items():
+        by_kernel[kernel_name(key)] = by_kernel.get(kernel_name(key), 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    Ssp = sparse_csr(A)
+    Ssp @ Ssp                                   # warm-up: cuSPARSE's workspace
+    L, cusparse_s = timed_s(lambda: Ssp @ Ssp)
+    library_nnz = L._nnz()
+    del L, Ssp
+    log(f"spgemm: C = A A, poisson5pt {side}x{side} CSR f32 ({A.nnz} entries): "
+        f"{sum(slices)} expanded products in {len(slices)} slices {slices} "
+        f"(MAX_WORKSPACE {SG.MAX_WORKSPACE}) and a merge; C {C.nnz} entries on "
+        f"{diagonals} diagonals; SpGEMM {spgemm_s:.4f} s, again {again_s} s "
+        f"(host clock after torch.cuda.synchronize); a product {dev_ms:.3f} ms of "
+        f"device in {kernels:.0f} kernels and {calls:.0f} launch calls "
+        f"(torch.profiler), the most device ms in "
+        + ", ".join(f"{name} {ms:.3f}" for name, ms in top)
+        + f"; peak device memory {peak / 2**20:.1f} MiB above the inputs; scipy "
+        f"on the host {scipy_s:.4f} s; cuSPARSE (torch.sparse CSR @ CSR, yardstick)"
+        f" {cusparse_s:.4f} s, {library_nnz} entries; pattern equal "
+        f"to scipy's {same_pattern}, values bit for bit {same_bits}, a second call "
+        f"bit for bit {repeat}")
+    if not (same_pattern and same_bits and repeat and C.format == "csr"
+            and C.device == A.device and len(slices) >= 2 and diagonals == 13):
+        raise RuntimeError("spgemm: C = A A differs from scipy's, from a second "
+                           "call, or ran in fewer than two slices")
+
+    # C x through the hand kernels against A (A x) through A's via_dia plan
+    x = seeded_x(n, 12, device)
+    opA = planned_operator(A, {"impl": "via_dia"})
+    before = read_counts()
+    y_ref = opA(opA(x))
+    y_dia = planned_operator(C, {"impl": "via_dia"})(x)
+    y_csr = planned_operator(C)(x)
+    after = read_counts()
+    err_dia, err_csr = rel_max(y_dia, y_ref), rel_max(y_csr, y_ref)
+    log(f"spgemm: C x through via_dia (dia_spmv, {diagonals} diagonals) and CSR "
+        f"(csr_spmv) against A (A x) through A's via_dia plan: relative max |diff| "
+        f"{err_dia:.3e} and {err_csr:.3e} (rtol {SPGEMM_RTOL}); launches dia_spmv "
+        f"{after['dia_spmv'] - before['dia_spmv']}, csr_spmv "
+        f"{after['csr_spmv'] - before['csr_spmv']}")
+    if not (err_dia <= SPGEMM_RTOL and err_csr <= SPGEMM_RTOL
+            and after["dia_spmv"] - before["dia_spmv"] == 3
+            and after["csr_spmv"] - before["csr_spmv"] == 1):
+        raise RuntimeError("spgemm: C x through the kernels differs from A (A x)")
+    del C, y_ref, y_dia, y_csr
+
+    # the Galerkin chain on the first level's prolongator
+    M, setup_s = timed_s(lambda: smoothed_aggregation(A))
+    P = M.levels[0].P
+    del M
+    Pt, transpose_s = timed_s(lambda: transpose(P))
+    Ac, chain_s = timed_s(lambda: multiply(Pt, multiply(A, P)))
+    t0 = time.perf_counter()
+    Ac_host = to_scipy(galerkin_product(Pt, A, P)).tocsr()
+    host_s = time.perf_counter() - t0
+    Ac_card = to_scipy(Ac).tocsr()
+    rap_err = abs(Ac_card - Ac_host).max() / abs(Ac_host).max()
+    log(f"spgemm: Galerkin chain P^T (A P) on smoothed_aggregation(A)'s first "
+        f"prolongator ({P.num_rows} x {P.num_cols}, {P.nnz} entries; set-up "
+        f"{setup_s:.2f} s, P^T {transpose_s:.2f} s on the host): A_c {Ac.nnz} entries "
+        f"in {chain_s:.4f} s on the card, the host's galerkin_product {Ac_host.nnz} "
+        f"entries in {host_s:.3f} s; relative max |diff| {rap_err:.3e} (rtol "
+        f"{SPGEMM_RTOL})")
+    if not rap_err <= SPGEMM_RTOL or Ac.device != A.device:
+        raise RuntimeError(f"spgemm: the Galerkin chain differs from the host's by "
+                           f"{rap_err}")
+    del P, Pt, Ac, Ac_host, Ac_card
+
+    # min-plus on grid2d(1000, 1000) with a zero diagonal, and the 10,000-row
+    # f64 recipe against the CPU
+    G = gallery.grid2d(side, side, device=device)
+    G = add(G, csr_matrix(np.arange(n + 1), np.arange(n), np.zeros(n, np.float32),
+                          (n, n), device=device))
+    minplus_slices = len(SG.plan(G, G).bounds)
+    D, minplus_s = timed_s(lambda: generalized_spgemm(G, G, None, torch.add, min))
+    r, c = D.row[:D.nnz].long(), D.col[:D.nnz].long()
+    manhattan = torch.equal(D.val[:D.nnz],
+                            ((r % side - c % side).abs() + (r // side - c // side).abs())
+                            .to(D.dtype))
+    pattern = np.array_equal(D.indptr.cpu().numpy(), R.indptr) and np.array_equal(
+        D.col[:D.nnz].cpu().numpy(), R.indices)
+    del D, G, r, c, R
+    H = min_plus_10k(device)
+    Hc, h_s = timed_s(lambda: generalized_spgemm(H, H, None, lambda a, b: a + b, min))
+    Hh = generalized_spgemm(H.to("cpu"), H.to("cpu"), None, lambda a, b: a + b, min)
+    h_pattern = (Hc.nnz == Hh.nnz and torch.equal(Hc.row.cpu(), Hh.row)
+                 and torch.equal(Hc.col.cpu(), Hh.col))
+    h_err = rel_max(Hc.val.cpu(), Hh.val)
+    log(f"spgemm: min-plus on grid2d({side}, {side}) + 0 I: {minplus_slices} slices, "
+        f"{minplus_s:.4f} s; every entry the Manhattan distance {manhattan}, the "
+        f"pattern that of A A {pattern}; the 10,000-row f64 recipe ({H.nnz} entries): "
+        f"C {Hc.nnz} entries in {h_s:.4f} s, pattern equal to the CPU's {h_pattern}, "
+        f"relative max |diff| {h_err:.3e} (rtol {MINPLUS_RTOL})")
+    if not (manhattan and pattern and minplus_slices >= 2 and h_pattern
+            and h_err <= MINPLUS_RTOL):
+        raise RuntimeError("spgemm: a semiring product is wrong")
+
+    # dense x sparse against (A^T X)^T through the via_dia plan (dia_spmm)
+    X = torch.as_tensor(np.random.RandomState(13).randn(n, 16), dtype=torch.float32,
+                        device=device)
+    Y, dense_s = timed_s(lambda: multiply(X.T, A))
+    before = read_counts()["dia_spmm"]
+    Y_ref = planned_operator(transpose(A), {"impl": "via_dia"})(X)
+    spmm_launches = read_counts()["dia_spmm"] - before
+    err = rel_max(Y.T, Y_ref)
+    log(f"spgemm: X^T A for X of {n} x 16 in {dense_s:.3f} s, against (A^T X)^T "
+        f"through the via_dia plan ({spmm_launches} dia_spmm launch): relative max "
+        f"|diff| {err:.3e} (rtol {SPGEMM_RTOL})")
+    if not (Y.shape == (16, n) and err <= SPGEMM_RTOL and spmm_launches == 1):
+        raise RuntimeError("spgemm: dense x sparse differs from (A^T X)^T")
+
+    launches = read_counts()
+    log(f"spgemm: path in {time.perf_counter() - t_path:.1f} s; launches {launches}")
     return launches
 
 
@@ -2159,6 +2379,8 @@ def autotune_phase(device, matrices, b, viadia_its):
     if recorded != space:
         raise RuntimeError("autotune: the hook's results do not cover the space")
 
+    # choose_format walks six formats, so it runs on a quarter of the grid
+    A = gallery.poisson5pt(500, 500, format="csr", device=device)
     xc = seeded_x(A.num_cols, 8, device)
     t0 = time.perf_counter()
     B, cfg = autotune.choose_format(A, xc, formats=FORMATS,
@@ -2172,7 +2394,7 @@ def autotune_phase(device, matrices, b, viadia_its):
         log(f"    {fmt:5s} best {best.duration_ms:.4f} ms {best.configuration}")
     y = build_spmv(B, cfg)(xc).cpu().numpy()
     ref = reference_spmv(A, xc)
-    log(f"autotune: choose_format over {FORMATS} in "
+    log(f"autotune: choose_format over {FORMATS} on poisson5pt 500x500 in "
         f"{time.perf_counter() - t0:.1f} s: {B.format} {cfg}")
     if not np.allclose(y, ref, rtol=1e-4, atol=1e-4):
         raise RuntimeError("autotune: choose_format's pick differs from the oracle")
@@ -3132,14 +3354,24 @@ def main():
                        capture_output=True, text=True).stdout.strip())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
     t_start = time.perf_counter()
+    seconds = {}                     # by phase, for the run's time budget
+    last = [t_start]
+
+    def done(phase):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[phase] = now - last[0]
+        last[0] = now
 
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process "
         f"a source)")
+    done("build")
 
     triad_gbps, triad = triad_phase(device)
     records = {"stream_triad": triad, "dia_spmv": dia_phase(device, triad_gbps)}
+    done("triad and dia_spmv")
     t0 = time.perf_counter()
     matrices = {
         "poisson5pt 1000x1000 f32": gallery.poisson5pt(1000, 1000, format="csr",
@@ -3149,35 +3381,53 @@ def main():
         "power-law 1M rows": powerlaw_csr(1_000_000, 10_000_000, 4, device),
     }
     log(f"matrices built in {time.perf_counter() - t0:.1f} s")
+    done("matrices")
     records["csr_spmv"] = csr_phase(device, triad_gbps, matrices)
     records.update(rails_phase(device, triad_gbps, matrices))
+    done("csr_spmv, binned_spmv, coo_spmv")
     records["dia_spmm"] = dia_spmm_phase(device, triad_gbps)
     records.update(rails_spmm_phase(device, triad_gbps, matrices))
+    done("dia_spmm, binned_spmm, coo_spmm")
     records.update(new_rails_phase(device, triad_gbps, matrices))
+    done("colsort2 and routed")
     records["take_probe"] = take_probe_phase(device, triad_gbps)
     records.update(band_phase(device, triad_gbps,
                               matrices["poisson5pt 1000x1000 f32"],
                               matrices["random 1M rows, skewed"]))
+    done("take_probe and the band kernels")
     del matrices["uniform random 1M x 1M"]
     probe_records, probe_launches = probes_phase(device, triad_gbps)
     records.update(probe_records)
+    done("probes")
 
     cg_launches, b, viadia_its, viadia_rel = cg_phase(
         device, matrices["poisson5pt 1000x1000 f32"])
+    done("cg.cu")
     krylov_launches = krylov_phase(device, matrices["poisson5pt 1000x1000 f32"], b)
+    done("krylov")
     graph_launches = graph_phase(device, matrices["poisson5pt 1000x1000 f32"], b)
+    done("graph")
+    spgemm_launches = spgemm_phase(device, matrices["poisson5pt 1000x1000 f32"])
+    done("spgemm")
     amg_launches, amg_its, M, b_amg = amg_phase(device)
+    done("amg")
     mesh_launches = multidevice_phase(
         device, matrices["poisson5pt 1000x1000 f32"], b, viadia_its, viadia_rel,
         M, b_amg, amg_its, matrices)
+    done("multidevice")
     del M, b_amg, matrices["power-law 1M rows"]
     tuned_launches, _ = autotune_phase(device, matrices, b, viadia_its)
+    done("autotune")
     spmm_launches = spmm_phase(device, matrices)
+    done("spmm")
     del matrices
     suite_launches = suite_phase(device)
+    done("suite")
     bench_launches = bench_path(device, BENCH_BUDGET_S)
+    done("bench")
     log(f"launches: cg.cu path {cg_launches}; krylov path {krylov_launches}; "
-        f"graph path {graph_launches}; amg path {amg_launches}; "
+        f"graph path {graph_launches}; spgemm path {spgemm_launches}; amg path "
+        f"{amg_launches}; "
         f"multidevice path {mesh_launches}; autotune path {tuned_launches}; spmm "
         f"path {spmm_launches}; suite path {suite_launches}; probes path "
         f"{probe_launches}; bench path {bench_launches}")
@@ -3185,6 +3435,7 @@ def main():
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
         [k for k in KRYLOV_KERNELS if krylov_launches[k] < 1] + \
         [k for k in GRAPH_KERNELS if graph_launches[k] < 1] + \
+        [k for k in SPGEMM_KERNELS if spgemm_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
         [k for k in SUITE_KERNELS if suite_launches[k] < 1] + \
@@ -3243,13 +3494,15 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cusp_autotuned_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": sum(path[name] for path in (
-                cg_launches, krylov_launches, graph_launches, amg_launches,
+                cg_launches, krylov_launches, graph_launches, spgemm_launches,
+                amg_launches,
                 mesh_launches,
                 tuned_launches, spmm_launches, suite_launches, probe_launches,
                 bench_launches)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
-"""Containers (counterpart of cusp_autotuned_tpu/formats; COO, CSR, DIA,
-ELL, ELLR, HYB, the permutation matrix and the dense Array2d are ported so
-far)."""
+"""Containers (counterpart of cusp_autotuned_tpu/formats): COO, CSR, DIA,
+ELL, ELLR, HYB, the permutation matrix and the dense Array2d."""
 
 from cusp_autotuned_tpu_torch.formats.base import MatrixBase
 from cusp_autotuned_tpu_torch.formats.coo import COO, coo_matrix
@@ -22,3 +21,31 @@ SPARSE_FORMATS = ("coo", "csr", "dia", "ell", "ellr", "hyb")
 
 def is_sparse(a) -> bool:
     return isinstance(a, MatrixBase) and getattr(a, "format", None) in SPARSE_FORMATS
+
+
+def is_coo(a) -> bool:
+    return isinstance(a, COO)
+
+
+def is_csr(a) -> bool:
+    return isinstance(a, CSR)
+
+
+def is_dia(a) -> bool:
+    return isinstance(a, DIA)
+
+
+def is_ell(a) -> bool:
+    return isinstance(a, ELL)
+
+
+def is_ellr(a) -> bool:
+    return isinstance(a, ELLR)
+
+
+def is_hyb(a) -> bool:
+    return isinstance(a, HYB)
+
+
+def is_permutation(a) -> bool:
+    return isinstance(a, PermutationMatrix)

@@ -89,8 +89,9 @@ def _build_dia_gather(A, config):
 
 def _plain(spmv_name):
     def build(A, config):
-        from cusp_autotuned_tpu_torch.ops import multiply
-        spmv = getattr(multiply, spmv_name)
+        import importlib
+        spmv = getattr(importlib.import_module("cusp_autotuned_tpu_torch.ops.multiply"),
+                       spmv_name)
 
         def fn(x):
             return spmv(A, x)

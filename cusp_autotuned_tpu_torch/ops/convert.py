@@ -26,6 +26,7 @@ from cusp_autotuned_tpu_torch.formats.ell import (
     INVALID_INDEX, ell_matrix, ellr_matrix,
 )
 from cusp_autotuned_tpu_torch.formats.hyb import hyb_matrix
+from cusp_autotuned_tpu_torch.ops.format_utils import compute_optimal_entries_per_row
 from cusp_autotuned_tpu_torch.utils.exceptions import FormatConversionException
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up
 
@@ -101,24 +102,6 @@ def _coo_to_dia(row, col, val, shape, device, *, dont_throw=False):
     return dia_matrix(offsets, data, shape, nnz=int(val.size), device=device)
 
 
-def optimal_entries_per_row(indptr, relative_speed: float = 3.0,
-                            breakeven_threshold: int = 4096) -> int:
-    """ELL width for the HYB split: the smallest K such that the rows
-    longer than K are rare (fewer than num_rows / relative_speed) or few
-    (fewer than breakeven_threshold) (parity:
-    generic/format_utils.inl:313-317, functional.inl:128-131)."""
-    lengths = np.diff(np.asarray(indptr))
-    num_rows = lengths.size
-    if num_rows == 0:
-        return 0
-    cumulative = np.cumsum(np.bincount(lengths))
-    for K, rows_below in enumerate(cumulative):
-        longer = num_rows - int(rows_below)
-        if relative_speed * longer < num_rows or longer < breakeven_threshold:
-            return K
-    return int(lengths.max())
-
-
 def _coo_to_slots(row, col, val, shape, width):
     """Scatter row-sorted triplets into slot-major (width, rows) arrays, and
     return the entries past `width` in their row (the spill)."""
@@ -173,7 +156,7 @@ def convert(src, fmt: str, *, dont_throw: bool = False,
     if fmt == "hyb":
         width = num_entries_per_row
         if not width and row.size:
-            width = optimal_entries_per_row(_indptr(row, shape[0]))
+            width = compute_optimal_entries_per_row(_indptr(row, shape[0]))
         cols2, vals2, (sr, sc, sv) = _coo_to_slots(row, col, val, shape,
                                                    int(width))
         return hyb_matrix(ell_matrix(cols2, vals2, shape, device=device),

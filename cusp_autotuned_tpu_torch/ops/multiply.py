@@ -1,4 +1,4 @@
-"""multiply — SpMV / SpMM / operator apply (counterpart of
+"""multiply — SpMV / SpMM / SpGEMM / operator apply (counterpart of
 cusp_autotuned_tpu/ops/multiply.py; parity target cusp/multiply.h and the
 format-specialised SpMV of cusp/system/detail/generic/multiply/spmv.h).
 
@@ -6,8 +6,9 @@ The per-format functions here are the plain PyTorch paths, for x of shape
 (n,) or (n, k), on any device.  The hand-written kernels are reached
 through kernels.variants.build_spmv, operators.planned_operator and the
 autotuner.  generalized_spmv, the semiring product that the graph
-algorithms reduce to, is plain PyTorch too: the JAX package computes it
-outside any Pallas kernel.
+algorithms reduce to, and the sparse × sparse products (ops/spgemm.py)
+are plain PyTorch too: the JAX package computes them outside any Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -19,9 +20,7 @@ import torch
 from cusp_autotuned_tpu_torch import formats as F
 from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv_plain
 from cusp_autotuned_tpu_torch.kernels.dia import dia_spmv_plain, promoted
-from cusp_autotuned_tpu_torch.utils.exceptions import (
-    InvalidInputException, NotImplementedException,
-)
+from cusp_autotuned_tpu_torch.utils.exceptions import InvalidInputException
 
 
 def spmv_coo(A: F.COO, x):
@@ -77,11 +76,14 @@ _SPMV = {"coo": spmv_coo, "csr": spmv_csr, "dia": spmv_dia,
 def multiply(A, B, *, use_autotuning: bool | None = None):
     """C = A @ B.  An operator applies itself; a sparse matrix times a
     vector or a dense block (a tensor (n, k) or an Array2d, read through its
-    logical view) takes the format's plain path; dense × dense is
-    torch.matmul.  When autotuning is enabled (autotune.enable(), parity
-    with cusp::ktt::enable) a sparse matrix of a tunable format routes
-    through one tuning iteration instead, unless use_autotuning=False (the
-    reference's hook, generic/multiply.inl:125-163)."""
+    logical view) takes the format's plain path; a sparse or permutation
+    matrix times a sparse or permutation matrix is an SpGEMM
+    (ops/spgemm.py) on A's device; dense × sparse is (B^T A^T)^T; dense ×
+    dense is torch.matmul.  When autotuning is enabled (autotune.enable(),
+    parity with cusp::ktt::enable) a sparse matrix of a tunable format
+    routes through one tuning iteration instead, unless
+    use_autotuning=False (the reference's hook,
+    generic/multiply.inl:125-163)."""
     from cusp_autotuned_tpu_torch.operators import OPERATOR_TYPES
     if isinstance(B, F.Array2d):
         # sparse/operator x array2d block: the kernels read a row-major
@@ -89,11 +91,12 @@ def multiply(A, B, *, use_autotuning: bool | None = None):
         B = B.to_dense().contiguous()
     if isinstance(A, OPERATOR_TYPES):
         return A(B)
-    if isinstance(A, F.PermutationMatrix):
-        return spmv_permutation(A, torch.as_tensor(B, device=A.device))
-    if F.is_sparse(A):
-        if F.is_sparse(B):
-            raise NotImplementedException("sparse x sparse is not ported yet")
+    if F.is_sparse(A) or isinstance(A, F.PermutationMatrix):
+        if F.is_sparse(B) or isinstance(B, F.PermutationMatrix):
+            from cusp_autotuned_tpu_torch.ops.spgemm import spgemm
+            return spgemm(A, B)
+        if isinstance(A, F.PermutationMatrix):
+            return spmv_permutation(A, torch.as_tensor(B, device=A.device))
         B = torch.as_tensor(B, device=A.device)
         if B.shape[0] != A.num_cols:
             raise InvalidInputException(
@@ -104,11 +107,23 @@ def multiply(A, B, *, use_autotuning: bool | None = None):
                 return autotune.multiply(A, B)
         return _SPMV[A.format](A, B)
     if F.is_sparse(B):
-        raise NotImplementedException("dense x sparse is not ported yet")
+        from cusp_autotuned_tpu_torch.ops.transpose import transpose
+        A = torch.as_tensor(A, device=B.device)
+        yt = multiply(transpose(B), A.transpose(-1, -2).contiguous()
+                      if A.dim() > 1 else A)
+        return yt.transpose(-1, -2) if yt.dim() > 1 else yt
     return torch.matmul(A, B)
 
 
-def _coo_view(A):
+def generalized_spgemm(A, B, initialize, combine, reduce):
+    """Semiring SpGEMM (parity: cusp/detail/multiply.inl:114-151):
+    C_ij = reduce over k of combine(A_ik, B_kj); `initialize` is ignored,
+    as in the JAX package (ops/spgemm.py)."""
+    from cusp_autotuned_tpu_torch.ops.spgemm import spgemm
+    return spgemm(A, B, initialize=initialize, combine=combine, reduce=reduce)
+
+
+def coo_view(A):
     """(row, col, val) tensors of A's stored entries on its device, grouped
     by row except for HYB (its ELL part, then its COO part): COO and CSR
     trimmed of their padding, ELL and ELLR slots without the -1 sentinel,
@@ -121,7 +136,7 @@ def _coo_view(A):
         ok = (A.col != F.INVALID_INDEX).t()         # row-major: sorted by row
         return rows.t()[ok], A.col.t()[ok], A.val.t()[ok]
     if isinstance(A, F.HYB):
-        parts = [_coo_view(A.ell), _coo_view(A.coo)]
+        parts = [coo_view(A.ell), coo_view(A.coo)]
         return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
     if isinstance(A, F.DIA):
         m, n = A.shape
@@ -154,7 +169,7 @@ def generalized_spmv(A, x, y, initialize, combine, reduce):
     from cusp_autotuned_tpu_torch.ops.segment import segment_reduce, segment_sum
     x = torch.as_tensor(x, device=A.device)
     y = torch.as_tensor(y, device=A.device)
-    row, col, val = _coo_view(A)
+    row, col, val = coo_view(A)
     row = row.long()
     init = initialize(y)
     combined = combine(val, torch.index_select(x, 0, col.long()))

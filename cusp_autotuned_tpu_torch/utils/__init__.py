@@ -1,6 +1,7 @@
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     CuspException, FormatException, FormatConversionException,
-    NotImplementedException, InvalidInputException,
+    NotImplementedException, InvalidInputException, IOException,
+    RuntimeException,
 )
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up, pad_to
 from cusp_autotuned_tpu_torch.utils.config import (

@@ -21,3 +21,11 @@ class NotImplementedException(CuspException):
 
 class InvalidInputException(CuspException):
     pass
+
+
+class IOException(CuspException):
+    """Raised by the readers on a malformed file (cusp::io_exception)."""
+
+
+class RuntimeException(CuspException):
+    pass

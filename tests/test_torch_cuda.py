@@ -1350,6 +1350,95 @@ def test_mis_gauss_seidel_hierarchy_on_card(cuda_device):
         assert mon.converged() and torch.isfinite(x).all()
 
 
+# -- the SpGEMM slice: sparse products on the card against their CPU runs
+
+def _same_product(C, C_cpu, exact):
+    """The same pattern; values equal bit for bit (exact) or within f32
+    rtol 1e-5, atol 1e-6."""
+    assert C.device.type == "cuda" and C.format == C_cpu.format
+    assert C.nnz == C_cpu.nnz and C.shape == C_cpu.shape
+    nnz = C.nnz
+    row, col, val = C.row.cpu(), C.col.cpu(), C.val.cpu()
+    assert torch.equal(row, C_cpu.row) and torch.equal(col[:nnz], C_cpu.col[:nnz])
+    if exact:
+        assert torch.equal(val, C_cpu.val)
+    else:
+        torch.testing.assert_close(val, C_cpu.val, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "coo"])
+def test_spgemm_on_card_matches_the_cpu(cuda_device, fmt):
+    """Random f32 values (the sum's order may differ from the CPU's) and
+    integer values (exact on both), twice each: the two calls on the card
+    give C bit for bit."""
+    from cusp_autotuned_tpu_torch import multiply
+    rng = np.random.RandomState(8)
+
+    def draw(m, n, k):
+        S = sp.coo_matrix((rng.rand(k).astype(np.float32),
+                           (rng.randint(0, m, k), rng.randint(0, n, k))), shape=(m, n))
+        return S.tocsr()
+    S, T = draw(3000, 2500, 15000), draw(2500, 3500, 17500)
+    for exact in (False, True):
+        if exact:
+            S.data, T.data = np.ceil(8 * S.data), np.ceil(8 * T.data)
+        A, B = (from_scipy(M, fmt, device=cuda_device) for M in (S, T))
+        C = multiply(A, B)
+        _same_product(C, multiply(A.to("cpu"), B.to("cpu")), exact)
+        C2 = multiply(A, B)
+        assert torch.equal(C.val, C2.val) and torch.equal(C.col, C2.col)
+
+
+def test_spgemm_multi_slice_on_card(cuda_device, monkeypatch):
+    """MAX_WORKSPACE patched small: the sliced product on the card equals
+    the single-slice one and the CPU's bit for bit (poisson5pt, integer
+    values)."""
+    from cusp_autotuned_tpu_torch import multiply
+    from cusp_autotuned_tpu_torch.ops import spgemm as SG
+    A = gallery.poisson5pt(120, 90, format="csr", device=cuda_device)
+    single = multiply(A, A)
+    monkeypatch.setattr(SG, "MAX_WORKSPACE", 4096)
+    assert len(SG.plan(A, A).bounds) > 10
+    C = multiply(A, A)
+    _same_product(C, single.to("cpu"), exact=True)
+    _same_product(C, multiply(A.to("cpu"), A.to("cpu")), exact=True)
+
+
+def test_spgemm_semiring_on_card(cuda_device, monkeypatch):
+    """Min-plus over a grid graph with a zero diagonal, sliced: every entry
+    of C is the grid's Manhattan distance, as on the CPU."""
+    from cusp_autotuned_tpu_torch import add, generalized_spgemm
+    from cusp_autotuned_tpu_torch.formats import csr_matrix
+    from cusp_autotuned_tpu_torch.ops import spgemm as SG
+    m = 40
+    G = gallery.grid2d(m, m, device=cuda_device)
+    n = G.num_rows
+    G = add(G, csr_matrix(np.arange(n + 1), np.arange(n), np.zeros(n, np.float32),
+                          (n, n), device=cuda_device))
+    monkeypatch.setattr(SG, "MAX_WORKSPACE", 2048)
+    C = generalized_spgemm(G, G, None, torch.add, min)
+    _same_product(C, generalized_spgemm(G.to("cpu"), G.to("cpu"), None, torch.add, min),
+                  exact=True)
+    r, c = C.row[:C.nnz].long(), C.col[:C.nnz].long()
+    dist = (r % m - c % m).abs() + (r // m - c // m).abs()
+    assert torch.equal(C.val[:C.nnz], dist.float())
+
+
+def test_dense_times_sparse_and_elementwise_on_card(cuda_device):
+    from cusp_autotuned_tpu_torch import multiply, subtract
+    A = gallery.poisson5pt(60, 50, format="csr", device=cuda_device)
+    X = torch.as_tensor(np.random.RandomState(2).randn(4, A.num_rows),
+                        dtype=torch.float32, device=cuda_device)
+    Y = multiply(X, A)
+    assert Y.device.type == "cuda" and Y.shape == X.shape
+    torch.testing.assert_close(Y.cpu(), multiply(X.cpu(), A.to("cpu")),
+                               rtol=1e-5, atol=1e-5)
+    D = subtract(A, A)
+    assert D.device.type == "cuda" and D.nnz == A.nnz and (D.val == 0).all()
+    with pytest.raises(InvalidInputException):
+        multiply(A, A.to("cpu"))
+
+
 # -- the multi-device path on one card: the DIA band kernels and sharded plans
 
 @pytest.mark.parametrize("k", [1, 3, 16])

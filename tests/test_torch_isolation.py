@@ -41,6 +41,10 @@ SLICE_MODULES = (
     "ops.segment", "graph", "graph.traversal", "graph.mis", "graph.coloring",
     "graph.ordering", "graph.hilbert", "relaxation.gauss_seidel",
     "relaxation.sor", "precond.ainv",
+    "ops.spgemm", "ops.elementwise", "ops.sort", "ops.lapack", "ops.verify",
+    "ops.printing", "ops.functional", "ops.iterator_utils", "gallery.grid",
+    "gallery.diffusion", "io", "io.matrix_market", "io.binary", "io.dimacs",
+    "utils.trace", "benchmarks.spgemm_compress",
 )
 # the JAX side: JAX itself, the JAX package, and the JAX repository's
 # bench.py and benchmarks/ folder
