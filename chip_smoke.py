@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
-Eleven main paths, each driven with every kernel's launch count set to 0
+Twelve main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
   cg.cu     the reference's cg.cu configuration: poisson5pt 1000x1000
@@ -75,8 +75,10 @@ just before it and read just after:
             poisson7pt 100x100x100 f32 with spmv_config={};
   autotune  the tuner's path: calibrate() (the stream triad, the
             gather/segment-sum probes and the take probe), the exhaustive
-            validated walk
-            (tune) on poisson5pt 1000x1000 CSR and on a skewed 1M-row CSR,
+            validated walk (tune) on poisson5pt 1000x1000 CSR through the
+            offline CLI's main(["poisson5pt:1000", "--json"]) in this
+            process (its leaders' device_time.device_us_per_call held to
+            device_ms within 5 %) and on a skewed 1M-row CSR,
             the cg.cu solve through tuned_operator (timed in turns with the
             via_dia solve), the dynamic multiply
             hook on a 65,536-row diagonal matrix, and choose_format over
@@ -89,6 +91,17 @@ just before it and read just after:
             matrix at k = 16, eigen.lobpcg (100 iterations) on the operator
             tuned for a (n, 3) block, and a 100x100 LOBPCG against the
             analytic eigenvalue and against the plain operator;
+  entry points
+            python -m cusp_autotuned_tpu_torch.autotune as a process of
+            its own on a .mtx of poisson5pt 200x200 with --choose-format,
+            --budget 1 (a budget of 10 s lets the whole walk through) and
+            --json (the coverage note, best_format against the
+            oracle); impl="cusparse" (backend/tsparse.py) on poisson5pt
+            1000x1000 and the skewed 1M-row CSR against the oracle, its
+            device ms beside the CSR kernel's in turns, and the cuSPARSE
+            yardstick's canonical tensor against the stored arrays; the
+            nine examples (cusp_autotuned_tpu_torch/examples) on the card
+            and on the CPU, their counts held together;
   multidevice
             the multi-device path on parallel.make_row_mesh([cuda:0] * 4),
             four mesh entries on the one card: cg.cu through the banded
@@ -215,6 +228,7 @@ Phases:
   autotune     the autotune path
   spmm         the spmm path, with the untuned default (binned) against
                each k = 16 walk's leader, timed again side by side
+  entry points the entry-points path
   suite        the suite path
   multidevice  the multidevice path
   bench        the bench path
@@ -227,17 +241,20 @@ over back-to-back calls) and device time (torch.profiler, every kernel of
 the call: the COO wrappers launch two), its useful GB/s and
 their share of the triad's rate, the bound (useful bytes over the triad's
 rate), the plain version's times and, where one PyTorch call computes the
-same product, that call's time (cuSPARSE through torch.sparse_csr_tensor,
-times a vector or the dense block, timed as a yardstick only; the port
-never calls it).  Any failed check
+same product, that call's time (cuSPARSE through backend/tsparse.py's
+to_torch_sparse, times a vector or the dense block, timed as a yardstick
+only; no tuning walk or default plan calls it).  Any failed check
 raises, and the script exits non-zero.  It exits non-zero at once where
 torch sees no CUDA device.  Its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -247,6 +264,10 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
+
+from cusp_autotuned_tpu_torch.utils.device_time import (
+    device_kernels, device_ms, kernel_name, read_counts, reset_counts,
+)
 
 DIA_RTOL, DIA_ATOL = 1e-5, 1e-4      # tests/test_pallas.py:22
 RAIL_RTOL, RAIL_ATOL = 1e-4, 1e-4    # tests/test_pallas.py:161
@@ -275,32 +296,6 @@ MESH_ENTRIES = 4
 BAND_RTOL = 1e-6                     # a band's rows are the unsharded kernel's
 SHARDED_CG_RTOL = 1e-4               # __graft_entry__.py:99 (x of the CG variants)
 ROW12_RTOL = 1e-5                    # relative to ||y||
-# the kernels each wrapper launches, each once a call (the CSR fold where
-# the plan has two tiles or more; the COO wrappers' torch.zeros adds a fill
-# kernel, which is PyTorch's own, for a plan with a run of more than
-# GAP_ROWS empty rows)
-WRAPPER_KERNELS = {
-    "dia_spmv": ("dia_spmv_kernel",),
-    "csr_spmv": ("csr_tile_kernel", "csr_fold_kernel"),
-    "binned_spmv": ("binned_spmv_kernel",),
-    "coo_spmv": ("coo_chunk_kernel", "coo_fold_kernel"),
-    "stream_triad": ("stream_triad_kernel",), "dia_spmm": ("dia_spmm_kernel",),
-    # the walk; its hub rows go through the colsort2 hub pair, counted there
-    "binned_spmm": ("binned_spmm_walk_kernel",),
-    "coo_spmm": ("coo_spmm_chunk_kernel", "coo_spmm_fold_kernel"),
-    "colsort2_spmv": ("colsort2_main_kernel",),
-    "colsort2_spmm": ("colsort2_spmm_main_kernel",),
-    "routed_spmv": ("routed_spmv_kernel",), "routed_spmm": ("routed_spmm_kernel",),
-    "take_probe": ("take_probe_kernel",),
-    "dia_band_spmv": ("dia_band_spmv_kernel",),
-    "dia_band_spmm": ("dia_band_spmm_kernel",),
-    "launch_floor": ("launch_floor_kernel",), "dia_probe": ("dia_probe_kernel",),
-    "dia_spmm_probe": ("dia_spmm_probe_kernel",),
-    "routed_probe": ("routed_probe_kernel",),
-    # the hub pair of a colsort2 plan with hub rows, and routed's tail
-    "colsort2_hub": ("colsort2_hub_kernel", "colsort2_hub_fold_kernel"),
-    "colsort2_hub_spmm": ("colsort2_spmm_hub_kernel", "colsort2_spmm_hub_fold_kernel"),
-}
 # the phases' plans of the two new rails: two planes of 8 entries (rows
 # above 16 entries in the hub region), and routed in blocks of 256
 COLSORT2_CONFIG = {"vrow_planes": 2, "vrow_len": 8, "block_size": 256}
@@ -313,6 +308,18 @@ JAX_AMG_150_ITERATIONS = 20          # the JAX package's AMG-CG count at 150x150
                                      # tests/test_torch_amg.py holds the port
                                      # to it on the CPU)
 MODEL_RATIO = 1.25                   # the model's pick against the walk leader
+LEADER_AGREEMENT = 0.05              # device_us_per_call against device_ms
+CLI_BUDGET_S = 1.0                   # cuts the CLI's walk of poisson5pt 200x200
+EXAMPLE_F32_SLACK = 2                # iterations, card against CPU, f32 CG
+EXAMPLE_F64_COUNTS = {("03_amg_preconditioner", "amg_iterations"),
+                      ("03_amg_preconditioner", "cg_iterations")}
+# the kernels the entry-points path must launch: its examples' and the
+# CLI's (csr via the `cuda` impl, dia via via_dia, the rails, and example
+# 06's DIA bands)
+ENTRY_KERNELS = ("dia_spmv", "csr_spmv", "binned_spmv", "coo_spmv",
+                 "colsort2_spmv", "dia_band_spmv")
+REPO = os.path.dirname(os.path.abspath(__file__))
+CARD = [""]                          # nvidia-smi's name and power limit
 MODEL_LINES = []                     # (matrix, pick, pick ms, leader, leader ms)
 EARLIER_VIA_DIA_MS = "0.36-0.70"     # PERF.md §5, H100 80GB HBM3, 700 W
 BENCH_BUDGET_S = 60.0                # the bench path's sweep
@@ -327,77 +334,6 @@ def median_ms(fn, samples=SAMPLES, per_sample=PER_SAMPLE):
     `samples` of the CUDA-event time of `per_sample` back-to-back calls)."""
     from cusp_autotuned_tpu_torch.benchmarks.harness import time_fn
     return time_fn(fn, samples=samples, per_sample=per_sample) * 1e3
-
-
-def kernel_name(key):
-    """A profiler key's function name, without namespace, template and
-    arguments: 'void (anonymous namespace)::coo_spmm_fold_kernel<float>(...)'
-    -> 'coo_spmm_fold_kernel'.  Used to find a wrapper's kernels; the
-    records stay keyed by the full key, so kernels of one name and
-    different templates are not merged."""
-    base = key.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
-    parts = base.replace("::", " ").split()
-    return parts[-1] if parts else key[:40]
-
-
-def device_kernels(fn, calls=PER_SAMPLE):
-    """{profiler key: (device ms per call, launches per call)} that
-    torch.profiler records over `calls` calls of fn.  A first step of
-    `calls` calls warms the tracer up and is dropped: without it the
-    profiler lost up to all launches of the first calls (PERF.md §7)."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    out = {}
-    for e in prof.key_averages():
-        # ProfilerStep# is the schedule's own annotation, not a kernel
-        if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep"):
-            ms, n = out.get(e.key, (0.0, 0))
-            out[e.key] = (ms + e.self_device_time_total / 1e3 / calls,
-                          n + e.count / calls)
-    return out
-
-
-def wrapper_kernels(fn):
-    """The names of the kernels that fn's kernel wrappers launch in one
-    call of fn, read from the wrappers' launch counts."""
-    before = read_counts()
-    fn()
-    return {name for w, n in read_counts().items() if n > before[w]
-            for name in WRAPPER_KERNELS[w]}
-
-
-def device_ms(fn, calls=PER_SAMPLE):
-    """(device ms per call or None where not measured, the least share of
-    an expected kernel's launches that the profiler recorded or None, the
-    per-kernel records).  The time sums every kernel of the call (the fill,
-    chunk and fold kernels of a COO call).  The profiler drops some
-    launches' records (PERF.md §7).  Where fn launches kernel wrappers,
-    each of its kernels runs once a call: the time is then the sum of each
-    kernel's mean over its recorded launches, and it is not measured
-    unless every kernel of those wrappers has a recorded launch.  Where fn
-    launches no wrapper (a plain version) it is the recorded time over
-    `calls`, a lower bound where records were dropped.  Where a call's host
-    work outlasts its kernels, this is below median_ms."""
-    expect = wrapper_kernels(fn)
-    for _ in range(3):              # a window with no device record at all
-        kernels = device_kernels(fn, calls)
-        if kernels:
-            break
-    if not kernels:
-        return None, None, kernels
-    if not expect:
-        return sum(ms for ms, _ in kernels.values()), None, kernels
-    seen = min(sum(n for key, (_, n) in kernels.items() if kernel_name(key) == name)
-               for name in expect)
-    if seen == 0:
-        return None, 0.0, kernels
-    return sum(ms / n for ms, n in kernels.values()), seen, kernels
 
 
 def describe_device(t, seen):
@@ -466,11 +402,15 @@ def seeded_x(n, seed, device):
 
 
 def sparse_csr(A):
-    """A as a torch.sparse_csr_tensor with f32 values, for the yardstick."""
-    from cusp_autotuned_tpu_torch.ops.convert import convert
-    C = convert(A, "csr")
-    return torch.sparse_csr_tensor(C.indptr, C.col[:C.nnz], C.val[:C.nnz].float(),
-                                   size=C.shape)
+    """A as a torch.sparse_csr_tensor with f32 values, for the yardstick:
+    backend/tsparse.py's to_torch_sparse (a CSR container's own arrays
+    where its columns are sorted and unique in each row)."""
+    from cusp_autotuned_tpu_torch.backend.tsparse import to_torch_sparse
+    S = to_torch_sparse(A)
+    if S.dtype == torch.float32:
+        return S
+    return torch.sparse_csr_tensor(S.crow_indices(), S.col_indices(),
+                                   S.values().float(), size=S.shape)
 
 
 def library_spmv(A, x, S=None):
@@ -1254,41 +1194,6 @@ def new_rails_phase(device, triad_gbps, matrices):
             "routed_spmv": out["routed_spmv"]["poisson5pt 1000x1000 f32"],
             "colsort2_spmm": out["colsort2_spmm"]["poisson5pt 1000x1000 f32 k=16"],
             "routed_spmm": out["routed_spmm"]["poisson5pt 1000x1000 f32 k=16"]}
-
-
-def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
-
-
-def counters():
-    from cusp_autotuned_tpu_torch.autotune.calibrate import stream_triad, take_probe
-    from cusp_autotuned_tpu_torch.benchmarks import dia_probe, dia_spmm_probe, routed_probe
-    from cusp_autotuned_tpu_torch.benchmarks.harness import launch_floor
-    from cusp_autotuned_tpu_torch.kernels import colsort2, routed
-    from cusp_autotuned_tpu_torch.kernels.binned import binned_spmm, binned_spmv
-    from cusp_autotuned_tpu_torch.kernels.colsort import coo_spmm, coo_spmv
-    from cusp_autotuned_tpu_torch.kernels.csr import csr_spmv
-    from cusp_autotuned_tpu_torch.kernels.dia import (
-        dia_band_spmm, dia_band_spmv, dia_spmm, dia_spmv)
-    return {"dia_spmv": dia_spmv, "csr_spmv": csr_spmv,
-            "dia_band_spmv": dia_band_spmv, "dia_band_spmm": dia_band_spmm,
-            "binned_spmv": binned_spmv, "coo_spmv": coo_spmv,
-            "stream_triad": stream_triad, "dia_spmm": dia_spmm,
-            "binned_spmm": binned_spmm, "coo_spmm": coo_spmm,
-            "colsort2_spmv": colsort2.colsort2_spmv,
-            "colsort2_spmm": colsort2.colsort2_spmm,
-            "colsort2_hub": colsort2.colsort2_hub,
-            "colsort2_hub_spmm": colsort2.colsort2_hub_spmm,
-            "routed_spmv": routed.routed_spmv, "routed_spmm": routed.routed_spmm,
-            "take_probe": take_probe, "launch_floor": launch_floor,
-            "dia_probe": dia_probe.dia_probe,
-            "dia_spmm_probe": dia_spmm_probe.dia_spmm_probe,
-            "routed_probe": routed_probe.routed_probe}
-
-
-def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
 
 
 def solve(op, b):
@@ -2280,12 +2185,25 @@ def walk(name, A, x, need=("binned", "colsort", "cuda")):
     profiler's reading of each of their kernels.  Returns the results."""
     from cusp_autotuned_tpu_torch import autotune
     from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
-    from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
 
     t0 = time.perf_counter()
     results = autotune.tune(A, x, reference_computation=reference_spmv)
     log(f"autotune: tune({name}, {A.format}, x {tuple(x.shape)}): "
         f"{len(results)} configurations in {time.perf_counter() - t0:.1f} s")
+    return walked(name, A, x, results, need)
+
+
+def walked(name, A, x, results, need=("binned", "colsort", "cuda"),
+           against_profiler=False):
+    """walk()'s checks and lines on a walk's results.  against_profiler:
+    each leader's device time through device_time.device_us_per_call (the
+    median of a call's kernels over PER_SAMPLE calls) must agree with
+    device_ms on the same call to LEADER_AGREEMENT, in one of three
+    readings."""
+    from cusp_autotuned_tpu_torch import autotune
+    from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
+    from cusp_autotuned_tpu_torch.utils.device_time import device_us_per_call
+
     for r in results:
         log(f"    {r.status.value:20s} {r.duration_ms:9.4f} ms  "
             f"{json.dumps(r.configuration, sort_keys=True)}"
@@ -2305,12 +2223,74 @@ def walk(name, A, x, need=("binned", "colsort", "cuda")):
     for r in sorted((r for r in results if r.is_valid()),
                     key=lambda r: r.duration_ms)[:4]:
         fn = build_spmv(A, r.configuration)
-        t, seen, kernels = device_ms(lambda: fn(x))
+        readings = []
+        for _ in range(3 if against_profiler else 1):
+            t, seen, kernels = device_ms(lambda: fn(x))
+            if not against_profiler:
+                break
+            us = device_us_per_call(fn, x, reps=PER_SAMPLE)
+            readings.append((t, us))
+            if t is not None and us is not None and \
+                    abs(us / 1e3 - t) <= LEADER_AGREEMENT * t:
+                break
+        else:
+            raise RuntimeError(f"autotune: {name}: device_us_per_call and device_ms "
+                               f"disagree past {LEADER_AGREEMENT:.0%} on "
+                               f"{r.configuration}: (ms, us) {readings}")
         log(f"    leader {r.duration_ms:.4f} ms tuned, {describe_device(t, seen)} ("
             + ", ".join(f"{kernel_name(k)} {ms:.4f} ms x{n:g} recorded"
                         for k, (ms, n) in kernels.items())
-            + f"): {r.configuration}")
+            + f"): {r.configuration}"
+            + (f"; device_us_per_call {us / 1e3:.4f} ms ({len(readings)} "
+               f"reading{'s' if len(readings) > 1 else ''})" if against_profiler else ""))
     return results
+
+
+def cli_walk(name, A):
+    """The walk of `name`, poisson5pt 1000x1000 CSR f32, through the offline
+    CLI's main(["poisson5pt:1000", "--json"]) in this process.  Its JSON
+    line must cover the space (configs == space_size, no coverage note)
+    with no cusparse result, and its winner must match the oracle at the
+    tuner's f32 bar; then walk()'s checks, the leaders' device times held
+    to device_us_per_call.  Returns the results and the CLI's x."""
+    from cusp_autotuned_tpu_torch import autotune
+    from cusp_autotuned_tpu_torch.autotune import __main__ as cli
+    from cusp_autotuned_tpu_torch.autotune.space import config_key
+    from cusp_autotuned_tpu_torch.autotune.tuner import matrix_signature
+    from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
+    from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
+
+    argv = ["poisson5pt:1000", "--json"]
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(argv)
+    walk_s = time.perf_counter() - t0
+    tuner = autotune.get_tuner()
+    tuner.log_fn = None                  # the CLI's progress sink
+    out = json.loads(stdout.getvalue())
+    log(f"autotune: python -m cusp_autotuned_tpu_torch.autotune {' '.join(argv)} "
+        f"in this process: rc {rc}, {out['configs']} of {out['space_size']} "
+        f"configurations, {out['ok']} Ok, in {walk_s:.1f} s; channel "
+        f"{out['channel']}; best {out['best']}; keys {sorted(out)}")
+    # the CLI's x: RandomState(0).randn in the matrix's dtype
+    x = torch.from_numpy(np.random.RandomState(0).randn(A.num_cols)
+                         .astype(np.float32)).to(A.device)
+    store = tuner.results[matrix_signature(A, x)]
+    results = [store[config_key(r["config"])] for r in out["results"]]
+    if rc != 0 or out["configs"] != out["space_size"] or "coverage" in out:
+        raise RuntimeError(f"autotune: the CLI's walk of {name} did not cover the "
+                           f"space: rc {rc}, {out['configs']} of {out['space_size']}")
+    if any(r["config"]["impl"] == "cusparse" for r in out["results"]):
+        raise RuntimeError("autotune: the CLI walked the cusparse baseline")
+    ref = reference_spmv(A, x)
+    y = build_spmv(A, out["best"])(x).double().cpu().numpy()
+    rel = np.linalg.norm(y - ref) / np.linalg.norm(ref)
+    log(f"  the CLI's winner against the oracle: relative error {rel:.3e}")
+    if not rel <= 1e-4:
+        raise RuntimeError(f"autotune: the CLI's winner {out['best']} differs from "
+                           f"the oracle by {rel:.3e}")
+    return walked(name, A, x, results, against_profiler=True), x
 
 
 def autotune_phase(device, matrices, b, viadia_its):
@@ -2328,9 +2308,12 @@ def autotune_phase(device, matrices, b, viadia_its):
     t0 = time.perf_counter()
     consts = calibrate.calibrate(device)
     log(f"autotune: calibrate() {consts} in {time.perf_counter() - t0:.1f} s")
-    for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
-        x = seeded_x(matrices[name].num_cols, 6, device)
-        model_line(name, matrices[name], x, walk(name, matrices[name], x))
+    name = "poisson5pt 1000x1000 f32"
+    results, x = cli_walk(name, A)
+    model_line(name, A, x, results)
+    name = "random 1M rows, skewed"
+    x = seeded_x(matrices[name].num_cols, 6, device)
+    model_line(name, matrices[name], x, walk(name, matrices[name], x))
 
     # the tuned solve against the via_dia one in turns (via_dia, tuned,
     # tuned, via_dia): the host's share of a CG iteration drifts within a
@@ -3310,6 +3293,173 @@ def probes_phase(device, triad_gbps):
     return records, launches
 
 
+def cli_subprocess(device):
+    """python -m cusp_autotuned_tpu_torch.autotune in a process of its own, on
+    a .mtx of poisson5pt 200x200 that io.write_matrix_market_file writes,
+    with --choose-format, a budget that cuts the walk and --json: rc 0, the
+    coverage note of the unwalked configurations, and best_format's plan
+    against the oracle."""
+    import tempfile
+    from cusp_autotuned_tpu_torch import gallery, io as pio
+    from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
+    from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+
+    A = gallery.poisson5pt(200, 200, format="csr", device=device)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "poisson5pt_200.mtx")
+        pio.write_matrix_market_file(A, path)
+        argv = [sys.executable, "-m", "cusp_autotuned_tpu_torch.autotune", path,
+                "--choose-format", "--budget", str(CLI_BUDGET_S), "--json"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+    run_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"entry points: the CLI exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    note = out.get("coverage", {})
+    log(f"entry points: python -m cusp_autotuned_tpu_torch.autotune <poisson5pt "
+        f"200x200 .mtx> --choose-format --budget {CLI_BUDGET_S} --json: rc 0 in "
+        f"{run_s:.1f} s (process start, walk and six format walks); "
+        f"{out['configs']} of {out['space_size']} configurations walked, "
+        f"{out['ok']} Ok, order {out.get('order')}; coverage {note}; best "
+        f"{out['best']}; best_format {out['best_format']} "
+        f"{out['best_format_config']}; {proc.stderr.count('[tune ')} progress lines "
+        f"on stderr")
+    if not (out["configs"] < out["space_size"]
+            and note.get("unwalked") == out["space_size"] - out["configs"]
+            and "unwalked_predicted_worse" in note):
+        raise RuntimeError(f"entry points: the budget did not cut the walk, or "
+                           f"its coverage note is wrong: {out}")
+    x = torch.from_numpy(np.random.RandomState(0).randn(A.num_cols)
+                         .astype(np.float32)).to(device)
+    B = convert(A, out["best_format"])
+    y = build_spmv(B, out["best_format_config"])(x).double().cpu().numpy()
+    ref = reference_spmv(A, x)
+    rel = np.linalg.norm(y - ref) / np.linalg.norm(ref)
+    log(f"  best_format's plan against the oracle: relative error {rel:.3e}")
+    if out["best_format"] not in FORMATS or not rel <= 1e-4:
+        raise RuntimeError(f"entry points: best_format {out['best_format']} "
+                           f"{out['best_format_config']} fails the oracle ({rel:.3e})")
+
+
+def cusparse_lines(device, matrices):
+    """impl="cusparse" (backend/tsparse.py) on poisson5pt 1000x1000 and the
+    skewed 1M against the oracle, its device ms beside the `cuda` impl's in
+    turns (cuda, cusparse, cusparse, cuda; a CUDA graph's replay, as the
+    tuner times: torch.profiler may record no kernel of a window late in a
+    long process); and the yardstick's canonical tensor (to_torch_sparse:
+    columns sorted, repeats summed) against the CSR tensor of the stored
+    arrays it replaced, in turns, on the skewed 1M, whose rows hold
+    unsorted and repeated columns."""
+    from cusp_autotuned_tpu_torch.backend.reference import reference_spmv
+    from cusp_autotuned_tpu_torch.benchmarks.harness import graph_time_s
+    from cusp_autotuned_tpu_torch.kernels.variants import build_spmv
+
+    for name in ("poisson5pt 1000x1000 f32", "random 1M rows, skewed"):
+        A = matrices[name]
+        x = seeded_x(A.num_cols, 9, device)
+        fns = {impl: build_spmv(A, {"impl": impl}) for impl in ("cuda", "cusparse")}
+        ref = reference_spmv(A, x)
+        rel = {impl: np.linalg.norm(fn(x).double().cpu().numpy() - ref)
+               / np.linalg.norm(ref) for impl, fn in fns.items()}
+        ms = {"cuda": [], "cusparse": []}
+        for impl in ("cuda", "cusparse", "cusparse", "cuda"):
+            ms[impl].append(graph_time_s(fns[impl], x) * 1e3)
+        log(f"entry points: impl=cusparse on {name} ({A.nnz} nnz): relative error "
+            f"{rel['cusparse']:.3e} against the oracle (cuda {rel['cuda']:.3e}); "
+            f"device ms in turns: cuda {', '.join(f'{t:.4f}' for t in ms['cuda'])}; "
+            f"cusparse {', '.join(f'{t:.4f}' for t in ms['cusparse'])} ({CARD[0]})")
+        if not rel["cusparse"] <= 1e-4:
+            raise RuntimeError(f"entry points: impl=cusparse differs from the oracle "
+                               f"on {name} by {rel['cusparse']:.3e}")
+    A = matrices["random 1M rows, skewed"]
+    x = seeded_x(A.num_cols, 9, device)
+    stored = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
+                                     size=A.shape)
+    canonical = sparse_csr(A)
+    diff = float((stored @ x - canonical @ x).abs().max())
+    t = {"stored": [], "canonical": []}
+    for k in ("stored", "canonical", "canonical", "stored"):
+        t[k].append(median_ms(library_spmv(A, x, stored if k == "stored" else canonical)))
+    log(f"entry points: the cuSPARSE yardstick on the skewed 1M: stored arrays "
+        f"({stored.values().numel()} entries) {', '.join(f'{v:.4f}' for v in t['stored'])} "
+        f"ms/call, to_torch_sparse ({canonical.values().numel()} entries) "
+        f"{', '.join(f'{v:.4f}' for v in t['canonical'])} ms/call in turns; max "
+        f"|y difference| {diff:.3e}")
+
+
+def finite(value):
+    """Every number in an example's returned dict is finite (None: a
+    strategy the example reports as skipped)."""
+    if isinstance(value, dict):
+        return all(finite(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(finite(v) for v in value)
+    if isinstance(value, float):
+        return math.isfinite(value)
+    return True
+
+
+def examples_on_card(device):
+    """The nine examples (cusp_autotuned_tpu_torch/examples) on the card,
+    each also on the CPU: every number finite, every iteration count the
+    CPU run's (within EXAMPLE_F32_SLACK for an f32 solve), every solve
+    that converges on the CPU converged, the same strategies skipped."""
+    from cusp_autotuned_tpu_torch import examples
+    for name in examples.NAMES:
+        main_fn = examples.load(name).main
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            card = main_fn(device)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = main_fn("cpu")
+        cpu_s = time.perf_counter() - t0
+        for line in printed.getvalue().splitlines():
+            log(f"    {name}| {line}")
+        log(f"entry points: example {name} on the card in {card_s:.1f} s (the CPU "
+            f"run {cpu_s:.1f} s): {card}")
+        if not finite(card):
+            raise RuntimeError(f"entry points: example {name} printed a number that "
+                               f"is not finite: {card}")
+        for key, want in cpu.items():
+            got = card[key]
+            if "iterations" in key:
+                slack = 0 if (name, key) in EXAMPLE_F64_COUNTS else EXAMPLE_F32_SLACK
+                bad = abs(got - want) > slack
+            elif "converged" in key:
+                bad = want and not got
+            elif key == "errors":
+                bad = {k for k, v in got.items() if v is None} != \
+                    {k for k, v in want.items() if v is None}
+            else:
+                continue
+            if bad:
+                raise RuntimeError(f"entry points: example {name}: {key} {got} on the "
+                                   f"card, {want} on the CPU")
+
+
+def entry_points_phase(device, matrices):
+    """The entry-points path: the CLI as a process of its own, the cusparse
+    baseline, and the nine examples on the card."""
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    reset_counts()
+    cli_subprocess(device)
+    cusparse_lines(device, matrices)
+    examples_on_card(device)
+    launches = read_counts()
+    log(f"entry points: path in {time.perf_counter() - t_path:.1f} s; launches "
+        f"{launches}")
+    return launches
+
+
 def bench_path(device, budget_s):
     """The bench path: cusp_autotuned_tpu_torch.bench.main in this process,
     with the counts set to 0 just before; checks that the headline was
@@ -3349,9 +3499,10 @@ def main():
     from cusp_autotuned_tpu_torch.kernels import _build
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], check=True,
-                       capture_output=True, text=True).stdout.strip())
+    CARD[0] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], check=True,
+                             capture_output=True, text=True).stdout.strip()
+    log(CARD[0])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
     t_start = time.perf_counter()
     seconds = {}                     # by phase, for the run's time budget
@@ -3420,6 +3571,8 @@ def main():
     done("autotune")
     spmm_launches = spmm_phase(device, matrices)
     done("spmm")
+    entry_launches = entry_points_phase(device, matrices)
+    done("entry points")
     del matrices
     suite_launches = suite_phase(device)
     done("suite")
@@ -3429,8 +3582,9 @@ def main():
         f"graph path {graph_launches}; spgemm path {spgemm_launches}; amg path "
         f"{amg_launches}; "
         f"multidevice path {mesh_launches}; autotune path {tuned_launches}; spmm "
-        f"path {spmm_launches}; suite path {suite_launches}; probes path "
-        f"{probe_launches}; bench path {bench_launches}")
+        f"path {spmm_launches}; entry points path {entry_launches}; suite path "
+        f"{suite_launches}; probes path {probe_launches}; bench path "
+        f"{bench_launches}")
     missing = [k for k in SPMV_KERNELS if tuned_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv") if cg_launches[k] < 1] + \
         [k for k in KRYLOV_KERNELS if krylov_launches[k] < 1] + \
@@ -3438,6 +3592,7 @@ def main():
         [k for k in SPGEMM_KERNELS if spgemm_launches[k] < 1] + \
         [k for k in ("dia_spmv", "csr_spmv", "take_probe") if amg_launches[k] < 1] + \
         [k for k in SPMM_KERNELS if spmm_launches[k] < 1] + \
+        [k for k in ENTRY_KERNELS if entry_launches[k] < 1] + \
         [k for k in SUITE_KERNELS if suite_launches[k] < 1] + \
         [k for k in MULTIDEVICE_KERNELS if mesh_launches[k] < 1] + \
         [k for k in PROBE_KERNELS if probe_launches[k] < 1] + \
@@ -3497,8 +3652,8 @@ def main():
                 cg_launches, krylov_launches, graph_launches, spgemm_launches,
                 amg_launches,
                 mesh_launches,
-                tuned_launches, spmm_launches, suite_launches, probe_launches,
-                bench_launches)),
+                tuned_launches, spmm_launches, entry_launches, suite_launches,
+                probe_launches, bench_launches)),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"]})

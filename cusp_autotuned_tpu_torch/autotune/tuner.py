@@ -191,9 +191,12 @@ def _sync(x) -> None:
 class Tuner:
     def __init__(self, cache_path: Optional[str] = None,
                  warmup: int = 2, repeats: int = 10,
+                 log_fn: Optional[Callable[[str], None]] = None,
                  measure: bool = True, timing_channel: str = "auto"):
-        """measure=False: validation-only walks record the single validated
-        run's wall time, build included, instead of measuring.
+        """log_fn: called with one line for each configuration tune()
+        measures (the JAX tuner's sink, the KTT log redirection); None is
+        silent.  measure=False: validation-only walks record the single
+        validated run's wall time, build included, instead of measuring.
         timing_channel: 'auto' (CUDA events on the card, the host clock on
         the CPU) or 'cuda_events' (raises for tensors off the card)."""
         if timing_channel not in CHANNELS:
@@ -201,6 +204,7 @@ class Tuner:
         self.cache_path = cache_path
         self.warmup = warmup
         self.repeats = repeats
+        self.log_fn = log_fn
         self.measure = measure
         self.timing_channel = timing_channel
         # signature -> {config_key: TuningResult}
@@ -386,6 +390,10 @@ class Tuner:
             self._built.pop((sig, config_key(config)), None)
             if len(out) % 10 == 0:
                 self.save()
+            if self.log_fn is not None:
+                self.log_fn(f"[tune {sig}] {result.status.value} "
+                            f"{result.duration_ms:.3f} ms {result.configuration}"
+                            + (f" ({result.error})" if result.error else ""))
             if stop_condition is not None:
                 stop_condition.update(result)
         self.save()

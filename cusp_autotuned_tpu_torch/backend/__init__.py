@@ -1,3 +1,3 @@
 from cusp_autotuned_tpu_torch.backend.reference import (
-    to_scipy, from_scipy, reference_spmv,
+    to_scipy, from_scipy, reference_spmv, reference_spgemm,
 )

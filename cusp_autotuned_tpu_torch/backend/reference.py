@@ -59,3 +59,8 @@ def from_scipy(S, fmt: str = "csr", dtype=None, device=None):
 def reference_spmv(A, x) -> np.ndarray:
     """Oracle y = A @ x via scipy, in float64."""
     return to_scipy(A).astype(np.float64) @ np.asarray(host_array(x), np.float64)
+
+
+def reference_spgemm(A, B) -> sp.spmatrix:
+    """Oracle C = A @ B via scipy, in float64, as a scipy COO matrix."""
+    return (to_scipy(A).astype(np.float64) @ to_scipy(B).astype(np.float64)).tocoo()

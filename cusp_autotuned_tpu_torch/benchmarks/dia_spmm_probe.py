@@ -127,8 +127,8 @@ def main(stream_gbps=None):
     (stream_gbps: the triad's rate, measured now if None); returns {(grid,
     k, label): (device s a call or None, s a call)}."""
     from cusp_autotuned_tpu_torch import gallery
+    from cusp_autotuned_tpu_torch.backend.tsparse import to_torch_sparse
     from cusp_autotuned_tpu_torch.benchmarks import harness
-    from cusp_autotuned_tpu_torch.ops.convert import convert
 
     device = harness.card(())
     if stream_gbps is None:
@@ -173,9 +173,7 @@ def main(stream_gbps=None):
                   f"GF/s {full / call / 1e9:7.1f} GB/s useful", flush=True)
 
         def csr_of(Ai):
-            C = convert(Ai, "csr")
-            return torch.sparse_csr_tensor(C.indptr, C.col[:C.nnz], C.val[:C.nnz],
-                                           size=C.shape)
+            return to_torch_sparse(Ai)
 
         for mode in MODES:
             fn = build_probe(A, mode)

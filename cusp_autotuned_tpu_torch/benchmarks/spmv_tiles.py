@@ -22,8 +22,8 @@ defaults; `--rails` times those rows alone.  For each plan it prints the
 device ms (a CUDA graph's replay) and the ms a call back to back, both
 from `harness.time_cold`, the CUDA kernels one call launches (torch.profiler,
 fills included), the bound (the useful bytes over 3.35 TB/s) and
-cuSPARSE's two times on the same input (`torch.sparse_csr_tensor(...) @
-x`, a yardstick the port never calls).
+cuSPARSE's two times on the same input (backend/tsparse.py's
+`to_torch_sparse(A) @ x`, a yardstick the port's plans never call).
 
 The default runs the shipped plans (block 256; values_per_thread 4 for
 COO), and the DIA SpMV (rows 1 and 2, on poisson5pt 1000x1000 and
@@ -69,8 +69,8 @@ import sys
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
+from cusp_autotuned_tpu_torch.backend.tsparse import to_torch_sparse
 from cusp_autotuned_tpu_torch.benchmarks import harness
 from cusp_autotuned_tpu_torch.kernels.binned import build_binned
 from cusp_autotuned_tpu_torch.kernels.colsort import build_colsort
@@ -78,6 +78,7 @@ from cusp_autotuned_tpu_torch.kernels.colsort2 import build_colsort2
 from cusp_autotuned_tpu_torch.kernels.csr import build_csr
 from cusp_autotuned_tpu_torch.kernels.dia import build_dia
 from cusp_autotuned_tpu_torch.kernels.routed import build_routed
+from cusp_autotuned_tpu_torch.utils.device_time import kernels_a_call
 from cusp_autotuned_tpu_torch.utils.exceptions import FormatConversionException
 
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM data sheet, 700 W
@@ -316,16 +317,6 @@ def turns(pairs, rounds, against=None):
     return rows
 
 
-def kernels_a_call(fn, x):
-    """CUDA kernels that one call of fn(x) launches (torch.profiler)."""
-    fn(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(x)
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type.name == "CUDA")
-
-
 def cold(fn, x, nbytes, samples=SAMPLES):
     """The plan fn's (device ms, ms a call), L2-cold: copies of its planned
     arrays and of x."""
@@ -421,8 +412,7 @@ def spmm(ks=SPMM_K, wanted=None):
     device = torch.device("cuda")
     rows = []
     for name, A in matrices(device, ("poisson5pt 1000x1000", "skewed 1M")):
-        S = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
-                                    size=A.shape)
+        S = to_torch_sparse(A)
         D = convert(A, "dia") if name.startswith("poisson") else None
         for k in ks:
             X = seeded_input(A.num_cols, k, device)
@@ -495,8 +485,7 @@ def main(argv=None):
     rows = []
     for name, A in matrices(device, {m for _, impl, _ in timed for m in ON[impl]}):
         x = seeded_input(A.num_cols, 0, device)
-        S = torch.sparse_csr_tensor(A.indptr, A.col[:A.nnz], A.val[:A.nnz].float(),
-                                    size=A.shape)
+        S = to_torch_sparse(A)
         ref = library_row(f"{name}: {A.num_rows} x {A.num_cols}, nnz {A.nnz}", S,
                           x, useful_bytes("cuda", A), rows, matrix=name)
         for label, impl, cfg in timed:

@@ -33,10 +33,15 @@ class COO(MatrixBase):
 
 
 def coo_matrix(row, col, val, shape, *, sort: bool = True, dtype=None,
-               device=None) -> COO:
+               device=None, sum_duplicates: bool = False) -> COO:
     """Build a COO container from host arrays: sort by row then column and
     pad to the reference's lane-aligned length.  It lands on `device`, by
-    default the CUDA device (utils.config.resolve_device)."""
+    default the CUDA device (utils.config.resolve_device).
+
+    sum_duplicates=True merges repeated (i, j) triplets by addition, the
+    unordered-assembly idiom (reference:
+    examples/MatrixAssembly/unordered_triplets.cu, sort + reduce_by_key).
+    Requires sort=True."""
     device = resolve_device(device)
     row = np.asarray(host_array(row), dtype=np.int32)
     col = np.asarray(host_array(col), dtype=np.int32)
@@ -49,6 +54,15 @@ def coo_matrix(row, col, val, shape, *, sort: bool = True, dtype=None,
         key = row.astype(np.int64) * (n + 1) + col
         order = np.argsort(key, kind="stable")
         row, col, val = row[order], col[order], val[order]
+        if sum_duplicates:
+            key = key[order]
+            starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+            if starts.size < nnz:
+                val = np.add.reduceat(val, starts)
+                row, col = row[starts], col[starts]
+                nnz = int(starts.size)
+    elif sum_duplicates and nnz > 1:
+        raise ValueError("sum_duplicates requires sort=True")
     npad = max(LANE, round_up(nnz, LANE))
     return COO(
         row=index_tensor(pad_to(row, npad, fill=m), device),
@@ -57,3 +71,10 @@ def coo_matrix(row, col, val, shape, *, sort: bool = True, dtype=None,
         shape=(m, n),
         nnz=nnz,
     )
+
+
+def coo_from_scipy(S, dtype=None, device=None) -> COO:
+    """A scipy matrix as a COO container on `device` (by default the CUDA
+    device)."""
+    S = S.tocoo()
+    return coo_matrix(S.row, S.col, S.data, S.shape, dtype=dtype, device=device)

@@ -58,3 +58,12 @@ def csr_matrix(indptr, col, val, shape, *, dtype=None, device=None) -> CSR:
         shape=(m, n),
         nnz=nnz,
     )
+
+
+def csr_from_scipy(S, dtype=None, device=None) -> CSR:
+    """A scipy matrix as a CSR container on `device` (by default the CUDA
+    device), its columns sorted within each row."""
+    S = S.tocsr()
+    S.sort_indices()
+    return csr_matrix(S.indptr, S.indices, S.data, S.shape, dtype=dtype,
+                      device=device)

@@ -25,6 +25,10 @@ impls:
               rows walked as colsort2's main rows in one plane, with a
               colsort2 tail for the hub rows, csrc/routed_spmv.cu,
               csrc/routed_spmm.cu)
+  and the explicit baseline `cusparse` (csr/coo/ell/ellr/hyb, as the JAX
+  package's `bcoo`): torch.sparse CSR, cuSPARSE on the card
+  (backend/tsparse.py).  It is no port of a Pallas kernel and stands in no
+  tuning space, default configuration or cost model.
 
 `cuda` stands where the JAX package has `pallas`.  For a matrix on a CUDA
 device the default impl is `cuda` (for a block x, `binned` except on dia),
@@ -97,6 +101,13 @@ def _plain(spmv_name):
             return spmv(A, x)
         return fn
     return build
+
+
+def _build_cusparse(A, config):
+    """The vendor-library baseline (backend/tsparse.py): explicit
+    configurations only, never part of the tuning walk."""
+    from cusp_autotuned_tpu_torch.backend.tsparse import cusparse_spmv
+    return cusparse_spmv(A)
 
 
 def _build_cuda(format_name):
@@ -184,13 +195,16 @@ VARIANTS: Dict[str, Dict[str, Callable]] = {
     "dia": {"slices": _build_dia_slices, "gather": _build_dia_gather,
             "cuda": _build_cuda("dia")},
     "csr": {"segsum": _plain("spmv_csr"), **_MOVES, "rcm_dia": _build_rcm_dia,
-            "cuda": _build_cuda("csr")},
-    "coo": {"segsum": _plain("spmv_coo"), **_MOVES, "cuda": _build_cuda("coo")},
+            "cuda": _build_cuda("csr"), "cusparse": _build_cusparse},
+    "coo": {"segsum": _plain("spmv_coo"), **_MOVES, "cuda": _build_cuda("coo"),
+            "cusparse": _build_cusparse},
     "ell": {"gather": _plain("spmv_ell"), **_MOVES, "rcm_dia": _build_rcm_dia,
-            "cuda": _build_cuda("ell")},
+            "cuda": _build_cuda("ell"), "cusparse": _build_cusparse},
     "ellr": {"gather": _plain("spmv_ell"), "rowlen": _plain("spmv_ellr"),
-             **_MOVES, "rcm_dia": _build_rcm_dia, "cuda": _build_cuda("ellr")},
-    "hyb": {"default": _plain("spmv_hyb"), **_MOVES, "cuda": _build_cuda("hyb")},
+             **_MOVES, "rcm_dia": _build_rcm_dia, "cuda": _build_cuda("ellr"),
+             "cusparse": _build_cusparse},
+    "hyb": {"default": _plain("spmv_hyb"), **_MOVES, "cuda": _build_cuda("hyb"),
+            "cusparse": _build_cusparse},
 }
 
 _DEFAULTS = {
@@ -202,7 +216,7 @@ _DEFAULTS = {
     "hyb": {"impl": "default", "dia_impl": "none"},
 }
 
-# impls of each format's tuning walk
+# impls of each format's tuning walk (never `cusparse`: a baseline)
 _RAILS = ("binned", "colsort", "colsort2", "routed")
 _DIA_MOVES = ("via_dia", "rcm_dia")       # the impls with an inner `dia_impl`
 _SPACE_IMPLS = {

@@ -9,6 +9,11 @@ factorisations (`ainv.cpp`).  At a million rows each takes minutes in
 Python.  They build into one library in `cusp_autotuned_tpu_torch/_build/`
 under a name keyed by a hash of the sources; where it cannot be built the
 call raises, and nothing falls back to a Python loop.
+
+Not ported: the JAX module's TPU planners (`plan_binned`,
+`plan_colsort_main`, `color_cells`, `color_cells_mixed`, `route_cells`,
+`color_cells_capped`, `routed_plan`), which lay entries out in VMEM tiles
+and lanes; the port's kernels/*.py plan on the device for Hopper instead.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ aggregation level operators: the factored smoothed prolongator and its
 restriction, and the grid-blocked tentative prolongator and its transpose.
 An operator applies to a vector (n,) or a dense block (n, k) and exposes
 num_rows, num_cols and, when it was planned from a matrix, that matrix's
-dtype and device, as the eigensolvers read them."""
+dtype and device, as the eigensolvers read them.
+
+Not ported: the JAX module's `jit_operator`, which compiles an operator's
+apply with XLA; an apply here launches its kernels directly."""
 
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ functions, which shadow their modules' names: import a module by its full
 path (importlib.import_module) where the module is meant."""
 
 from cusp_autotuned_tpu_torch.ops import blas, format_utils
-from cusp_autotuned_tpu_torch.ops.convert import convert
+from cusp_autotuned_tpu_torch.ops.convert import convert, copy, to_dense
 from cusp_autotuned_tpu_torch.ops.multiply import (
     multiply, generalized_spmv, generalized_spgemm,
 )

@@ -15,10 +15,13 @@ The reference's planning rules hold:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from cusp_autotuned_tpu_torch import formats as F
-from cusp_autotuned_tpu_torch.formats.base import host_array
+from cusp_autotuned_tpu_torch.formats.base import as_tensor, host_array
 from cusp_autotuned_tpu_torch.formats.coo import coo_matrix
 from cusp_autotuned_tpu_torch.formats.csr import csr_matrix
 from cusp_autotuned_tpu_torch.formats.dia import dia_matrix
@@ -162,3 +165,30 @@ def convert(src, fmt: str, *, dont_throw: bool = False,
         return hyb_matrix(ell_matrix(cols2, vals2, shape, device=device),
                           coo_matrix(sr, sc, sv, shape, device=device))
     raise ValueError(f"unknown target format {fmt!r}")
+
+
+def copy(src):
+    """A deep copy of a container: the same format, every tensor cloned on
+    its device (parity: cusp::copy, cusp/copy.h:39,84)."""
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return copy(v)
+        return v
+    return dataclasses.replace(src, **{f.name: clone(getattr(src, f.name))
+                                       for f in dataclasses.fields(src) if f.init})
+
+
+def to_dense(A):
+    """A container (or a tensor or array) as a dense 2-D tensor on its
+    device; repeated entries are summed, as the JAX package's to_dense does.
+    Host data goes to the CUDA device (utils.config.resolve_device)."""
+    if isinstance(A, F.Array2d):
+        return A.to_dense()
+    if isinstance(A, (np.ndarray, torch.Tensor)):
+        return as_tensor(A)
+    row, col, val, shape = coo_arrays(A)
+    dense = np.zeros(shape, dtype=val.dtype)
+    np.add.at(dense, (row, col), val)
+    return torch.as_tensor(dense, device=A.device)

@@ -43,7 +43,7 @@ from cusp_autotuned_tpu_torch.precond.aggregation.structured_rap import (
 )
 from cusp_autotuned_tpu_torch.precond.aggregation.tentative import fit_candidates
 from cusp_autotuned_tpu_torch.precond.multilevel import (
-    MAX_LEVELS, MIN_LEVEL_SIZE, Level, Multilevel, coarse_lu,
+    MAX_LEVELS, MIN_LEVEL_SIZE, CoarseLU, Level, Multilevel, coarse_lu,
 )
 from cusp_autotuned_tpu_torch.utils.exceptions import (
     FormatConversionException, NotImplementedException,

@@ -4,7 +4,7 @@ multi-shift cg_m and bicgstab_m, and mixed-precision refinement (refine,
 mixed_precision_cg)."""
 
 from cusp_autotuned_tpu_torch.solvers.monitor import (
-    Monitor, MonitorState, default_monitor, monitor_init,
+    Monitor, MonitorState, default_monitor, monitor_init, monitor_record,
 )
 from cusp_autotuned_tpu_torch.solvers.cg import cg
 from cusp_autotuned_tpu_torch.solvers.bicgstab import bicgstab

@@ -68,6 +68,17 @@ def monitor_init(b, iteration_limit=500, relative_tolerance=1e-5,
     )
 
 
+def monitor_record(state: MonitorState, r_norm) -> MonitorState:
+    """Append one residual norm to a new state, leaving `state` as it was
+    (the JAX package's state-passing form; the solvers here record in
+    place with MonitorState.record_)."""
+    out = dataclasses.replace(state, k=state.k.clone(), r_norm=state.r_norm.clone(),
+                              residuals=state.residuals.clone())
+    out.record_(torch.as_tensor(r_norm, dtype=state.r_norm.dtype,
+                                device=state.k.device))
+    return out
+
+
 class Monitor:
     """Host-facing monitor with the reference's API (cusp/monitor.h)."""
 

@@ -5,5 +5,5 @@ from cusp_autotuned_tpu_torch.utils.exceptions import (
 )
 from cusp_autotuned_tpu_torch.utils.padding import LANE, round_up, pad_to
 from cusp_autotuned_tpu_torch.utils.config import (
-    get_config, plan_value_dtype, resolve_device,
+    configure, get_config, plan_value_dtype, resolve_device,
 )

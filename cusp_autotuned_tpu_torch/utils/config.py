@@ -5,6 +5,12 @@ and the tuner's env-var-backed knobs.
 Env vars (all optional):
   CUSP_TORCH_TUNING_CACHE  path of the persistent tuning-results JSON
   CUSP_TORCH_TUNE_BF16     "1": tuning walks also search bf16 value storage
+
+Not ported: `enable_compile_cache`, which turns on XLA's persistent
+executable cache (the port's kernels are built once by nvcc into the
+package's git-ignored `_build/` directory and loaded from there), and
+`plan_budget`, the cap on plan arrays embedded as XLA constants (a plan
+here is a set of tensors passed to the kernel at each call).
 """
 
 from __future__ import annotations
@@ -76,3 +82,14 @@ def plan_value_dtype(config: dict | None, dtype: torch.dtype) -> torch.dtype:
         raise NotImplementedException(
             "value_dtype='bfloat16' applies to real floating matrices only")
     return torch.bfloat16
+
+
+def configure(**kwargs) -> Config:
+    """Set fields of the configuration by name (tests, embedders); an
+    unknown field raises AttributeError."""
+    cfg = get_config()
+    for k, v in kwargs.items():
+        if not hasattr(cfg, k):
+            raise AttributeError(f"unknown config field {k!r}")
+        setattr(cfg, k, v)
+    return cfg

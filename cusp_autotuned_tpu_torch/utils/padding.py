@@ -3,7 +3,9 @@
 The JAX package pads the major axes of COO/CSR/DIA to the TPU's 128-wide
 vector lane.  The GPU kernels need no such alignment; the port keeps the
 same padded lengths only so that its containers hold arrays of the same
-shape as the reference's, which the parity tests compare directly.
+shape as the reference's, which the parity tests compare directly.  The
+JAX module's SUBLANE and pad_axis_to, which tile arrays for the TPU's
+(8, 128) vector registers, are not ported: nothing here tiles that way.
 """
 
 import numpy as np

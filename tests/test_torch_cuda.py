@@ -1609,3 +1609,45 @@ def test_routed_probe_matches_plain_on_card(cuda_device, mode):
     assert bool(((y - plain).abs() <= 1e-4 + 1e-4 * scale).all())
     if mode == "full":
         assert torch.equal(y, build_routed(A, config)(x))
+
+
+# -- the entry points: the cusparse baseline, device_time and the CLI ------
+
+@pytest.mark.parametrize("fmt", ["csr", "coo", "ell", "hyb"])
+def test_cusparse_impl_on_card(cuda_device, fmt):
+    from cusp_autotuned_tpu_torch.ops.convert import convert
+    A = convert(gallery.poisson5pt(40, 30, device=cuda_device), fmt)
+    x = _x(A.num_cols, cuda_device)
+    fn = build_spmv(A, {"impl": "cusparse"})
+    np.testing.assert_allclose(fn(x).cpu().numpy(), reference_spmv(A, x),
+                               **TOL["csr"])
+    X = torch.stack([x, 2 * x, -x], 1)
+    np.testing.assert_allclose(fn(X)[:, 1].cpu().numpy(), 2 * reference_spmv(A, x),
+                               **TOL["csr"])
+
+
+def test_device_time_reads_the_card(cuda_device):
+    from cusp_autotuned_tpu_torch.utils import device_time
+    A = gallery.poisson5pt(300, 300, format="dia", device=cuda_device)
+    x = _x(A.num_cols, cuda_device)
+    fn = build_spmv(A, {"impl": "cuda"})
+    events = device_time.capture_trace(fn, x, 6)
+    assert {c for c, _, _ in events} <= set(range(6)) and events
+    assert all(device_time.kernel_name(k) == "dia_spmv_kernel" for _, k, _ in events)
+    us = device_time.device_us_per_call(fn, x)
+    assert us is not None and 0 < us < 1e3
+    assert device_time.device_us_per_call(fn, x, span_name="no such kernel") is None
+    (key, per_call, nbytes, gbps), = device_time.hlo_breakdown(fn, x)
+    assert "dia_spmv_kernel" in key and per_call > 0 and nbytes is gbps is None
+
+
+def test_cli_walks_the_space_on_card(cuda_device, capsys, monkeypatch):
+    import json
+    from cusp_autotuned_tpu_torch.autotune import __main__ as cli
+    from cusp_autotuned_tpu_torch.autotune import tuner as tuner_mod
+    monkeypatch.setattr(tuner_mod, "_global_tuner", None)
+    assert cli.main(["poisson5pt:20", "--json"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["configs"] == out["space_size"] and out["channel"] == "cuda_events"
+    assert {r["status"] for r in out["results"]} <= {"Ok", "DeviceLimitsExceeded"}
+    assert all(r["config"]["impl"] != "cusparse" for r in out["results"])

@@ -45,6 +45,12 @@ SLICE_MODULES = (
     "ops.printing", "ops.functional", "ops.iterator_utils", "gallery.grid",
     "gallery.diffusion", "io", "io.matrix_market", "io.binary", "io.dimacs",
     "utils.trace", "benchmarks.spgemm_compress",
+    "utils.device_time", "backend.tsparse", "autotune.__main__", "examples",
+    *(f"examples.{name}" for name in (
+        "01_formats_and_convert", "02_solve_poisson", "03_amg_preconditioner",
+        "04_autotuned_spmv", "05_graph_and_io", "06_multichip",
+        "07_spmv_strategies", "08_large_operators",
+        "09_matrix_free_and_assembly")),
 )
 # the JAX side: JAX itself, the JAX package, and the JAX repository's
 # bench.py and benchmarks/ folder
@@ -64,6 +70,24 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_jax_module_has_a_twin():
+    """Each module of the JAX package has one of the same path in the port,
+    or of its new name: kernels/pallas_X.py may be kernels/X.py, and the
+    vendor baseline backend/jsparse.py is backend/tsparse.py."""
+    def modules(package):
+        root = os.path.join(REPO, package)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, dirs, files in os.walk(root)
+                if "_build" not in os.path.relpath(d, root).split(os.sep)
+                for f in files if f.endswith(".py")}
+    renames = {"backend/jsparse.py": "backend/tsparse.py"}
+    port = modules("cusp_autotuned_tpu_torch")
+    missing = sorted(m for m in modules("cusp_autotuned_tpu") if m not in port
+                     and renames.get(m, m.replace("kernels/pallas_", "kernels/"))
+                     not in port)
+    assert not missing, missing
 
 
 def test_chip_smoke_imports_no_jax():
